@@ -1,0 +1,137 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in `csrc/` have a plain C interface. They are compiled with
+`nvcc` for `sm_90a` into one shared library at first use, into
+`build/torch_kernels/` beside the package (listed in `.gitignore`), and
+loaded with ctypes. The library's name carries a hash of the sources and
+flags, so an edited source is rebuilt. There is no fallback: if `nvcc` or
+the card is missing, `library()` raises.
+
+Each wrapper that launches a kernel adds one to its entry of `LAUNCHES`
+right where it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu")
+# --fmad=false: no multiply-add contraction, so the kernels round each
+# product and sum as the plain PyTorch versions do (parity first, speed later)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+LAUNCHES = {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # keys, order, pair_gid, table, M, ranges, gid_out, payload, stream
+    "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, accum, log_t_eff, n_contrib, stream
+    "gsdf_blend_fwd": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
+    # ranges, payload, gid, M, num_tiles, grid_w, log_t_eff, n_contrib,
+    # ct_accum, ct_log_t_eff, grads, stream
+    "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P),
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library unless it is already built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    out = BUILD_DIR / f"libgsdf_torch_kernels-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=secs, cached=False, log=res.stdout + res.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use). Raises without nvcc."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (take the plain version), False for a CUDA
+    tensor (launch the kernel). Any other device raises."""
+    kind = t.device.type
+    if kind == "cpu":
+        return True
+    if kind == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`
+    (a -1 in `shape` matches any size)."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s != -1 and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(entry: str, *args) -> None:
+    """Call a C entry on the current stream; raise on a CUDA error."""
+    fn = getattr(library(), entry)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
