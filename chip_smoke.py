@@ -8,13 +8,22 @@ Phases, each printing its own lines:
 1. device: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/;
 3. kernel checks: each kernel (K3 tile_ranges_pack, K1 blend_fwd, K2
-   blend_bwd) against its plain PyTorch version on the card, on the small
-   test scene (64x64) and on the headline scene (1200x680, 400k Gaussians),
-   plus three training steps on the card against three on the CPU;
-4. main path: `train_step` at the headline size, 3 warm-up and 10 timed
-   steps, with every kernel's launch count taken over exactly these steps;
-   then 3 steps under torch.profiler for the device's busy and idle share
-   and the kernels that take the device time;
+   blend_bwd, K4 blend_fwd_export) against its plain PyTorch version on the
+   card, on the small test scene (64x64) and on the headline scene
+   (1200x680, 400k Gaussians): K4 bit-equal to K1 and its keep flags
+   against the plain ones; the cached blend through K4's pruned cache
+   against the fresh blend at export parameters; then three fresh training
+   steps, and the cadence of one export and seven cached steps, on the card
+   against the same steps on the CPU;
+4. main path, fresh binning: `train_step` at the headline size, 3 warm-up
+   and 10 timed steps, with every kernel's launch count taken over exactly
+   these steps; then 3 steps under torch.profiler for the device's busy
+   and idle share and the kernels that take the device time;
+4b. main path, the cached-binning cadence: from one state, 8 fresh steps
+   and the cadence (one export step, then 7 cached steps) in turns, twice,
+   timed on CUDA events, with the launch counts of each cadence; one fresh,
+   one export and one cached step under torch.profiler, and each under
+   torch.cuda.set_sync_debug_mode("warn") to count host syncs;
 5. kernel times: each kernel and its plain version at the headline shapes.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
@@ -69,7 +78,16 @@ KERNELS = {
         source="gsdf_slam_tpu_torch/csrc/blend_bwd.cu",
         replaces="gsdf_slam_tpu/ops/pallas_blend_grouped.py:276",
     ),
+    "blend_fwd_export": dict(
+        source="gsdf_slam_tpu_torch/csrc/blend_fwd.cu",
+        replaces="gsdf_slam_tpu/ops/pallas_blend_grouped.py:89 (keep_margin)",
+    ),
 }
+# RasterizeConfig's default cache_prune_margin, the mapper's setting
+MARGIN = 10.0
+# the cadence after densify_until_iter (engine/settings.py:97): one export
+# step, then rebin_interval_after_densify - 1 cached steps
+CACHED_STEPS = 7
 
 
 def log(msg: str) -> None:
@@ -164,8 +182,10 @@ def cotangents(torch, st, accum, log_t_eff, rng_seed=1):
     return ct_a.contiguous(), ct_t.contiguous()
 
 
-def check_kernels(torch, name, st, k1_bound, k2_bound):
-    """Each kernel against its plain version on the same inputs."""
+def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
+    """Each kernel against its plain version on the same inputs; K4 against
+    K1; the cached blend through K4's pruned cache against the fresh blend
+    at export parameters."""
     from gsdf_slam_tpu_torch.ops import binning, blend, tile_blend
 
     num_tiles = st["gw"] * st["gh"]
@@ -179,8 +199,14 @@ def check_kernels(torch, name, st, k1_bound, k2_bound):
         f"K3 ranges/gid/payload bit-equal={k3_ok} max_abs_err={k3_err:.3g}")
 
     acc_k, lte_k, nc_k = tile_blend.blend_fwd(r_k, p_k, st["gw"], st["gh"])
-    acc_p, lte_p, nc_p = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"])
+    # the plain version with a margin is also K4's: its first three outputs
+    # are the plain K1's
+    acc_p, lte_p, nc_p, keep_p = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"], keep_margin=MARGIN)
     torch.cuda.synchronize()
+
+    def fwd_err(acc, lte):
+        return max(float((acc - acc_p).abs().max()), float((torch.exp(lte) - torch.exp(lte_p)).abs().max()))
+
     acc_err = float((acc_k - acc_p).abs().max())
     t_err = float((torch.exp(lte_k) - torch.exp(lte_p)).abs().max())
     lte_err = float((lte_k - lte_p).abs().max())
@@ -191,6 +217,36 @@ def check_kernels(torch, name, st, k1_bound, k2_bound):
         f"log_t_eff max_abs_err={lte_err:.3g} pixels>{K1_SMALL:g}={over} "
         f"n_contrib mismatches={nc_diff} bound={k1_bound:g}")
 
+    acc_4, lte_4, nc_4, keep_k = tile_blend.blend_fwd_export(r_k, p_k, st["gw"], st["gh"], MARGIN)
+    torch.cuda.synchronize()
+    k4_bit_equal = torch.equal(acc_4, acc_k) and torch.equal(lte_4, lte_k) and torch.equal(nc_4, nc_k)
+    k4_err = fwd_err(acc_4, lte_4)
+    keep_mismatch = int((keep_k != keep_p).sum())
+    kept = int(keep_k.sum())
+    pruned_share = 1.0 - kept / max(p_k.shape[1], 1)
+    log(f"[check {name}] K4 accum/log_t_eff/n_contrib bit-equal to K1={k4_bit_equal}; "
+        f"max_abs_err to the plain version {k4_err:.3g}; keep mismatches against the plain "
+        f"version={keep_mismatch} of {p_k.shape[1]} pairs; kept {kept}, pruned share "
+        f"{pruned_share:.6f} (1 - kept / post-cull pairs, margin {MARGIN:g})")
+    margin_ok = True
+    if headline:
+        *_, keep_p1 = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"], keep_margin=1.0)
+        kept_p1, kept_p10 = int(keep_p1.sum()), int(keep_p.sum())
+        margin_ok = kept_p1 < kept_p10
+        log(f"[check {name}] margin honoured: the plain version keeps {kept_p1} pairs at margin 1, "
+            f"{kept_p10} at margin {MARGIN:g}")
+
+    # the cached blend through K4's pruned cache, at export parameters
+    cache = tile_blend.build_pruned_cache(
+        binning.Binned(ranges=r_k, gid=g_k, payload=p_k, total_pairs=st["total"]), keep_k,
+        num_gaussians=st["p"], image_size=(st["height"], st["width"]),
+    )
+    payload_c = st["table"].index_select(0, cache.gid).t().contiguous()
+    acc_c, lte_c, nc_c = tile_blend.blend_fwd(cache.ranges, payload_c, st["gw"], st["gh"])
+    torch.cuda.synchronize()
+    cached_fwd_err = max(float((acc_c - acc_k).abs().max()),
+                         float((torch.exp(lte_c) - torch.exp(lte_k)).abs().max()))
+
     ct_a, ct_t = cotangents(torch, st, acc_p, lte_p)
     bargs = (r_k, p_k, g_k, lte_p, nc_p, ct_a, ct_t, st["p"], st["gw"], st["gh"])
     g_kern = tile_blend.blend_bwd(*bargs)
@@ -200,28 +256,36 @@ def check_kernels(torch, name, st, k1_bound, k2_bound):
     # lost that term would land, which must be beyond the bound
     g_no_eff = blend.blend_bwd_plain(*bargs[:6], torch.zeros_like(ct_t), *bargs[7:])
     g_no_col = blend.blend_bwd_plain(*bargs[:5], torch.zeros_like(ct_a), *bargs[6:])
+    g_fresh = tile_blend.blend_bwd(r_k, p_k, g_k, lte_k, nc_k, ct_a, ct_t, st["p"], st["gw"], st["gh"])
+    g_cached = tile_blend.blend_bwd(cache.ranges, payload_c, cache.gid, lte_c, nc_c, ct_a, ct_t,
+                                    st["p"], st["gw"], st["gh"])
     torch.cuda.synchronize()
 
-    def scaled_err(g, fields=("means2d", "conics", "opacity", "colors")):
+    def scaled_err(g, ref, fields=("means2d", "conics", "opacity", "colors")):
         errs = {}
         for field, sl in (("means2d", slice(0, 2)), ("conics", slice(2, 5)),
                           ("opacity", slice(5, 6)), ("colors", slice(6, 9))):
             if field in fields:
-                scale = max(float(g_plain[:, sl].abs().max()), 1e-12)
-                errs[field] = float((g[:, sl] - g_plain[:, sl]).abs().max()) / scale
+                scale = max(float(ref[:, sl].abs().max()), 1e-12)
+                errs[field] = float((g[:, sl] - ref[:, sl]).abs().max()) / scale
         return errs
 
-    errs = scaled_err(g_kern)
+    errs = scaled_err(g_kern, g_plain)
     k2_err = max(errs.values())
     k2_abs = float((g_kern - g_plain).abs().max())
     # colours take only ct_accum; the geometric fields take both terms
     geometric = ("means2d", "conics", "opacity")
-    eff_weight = max(scaled_err(g_no_eff, geometric).values())
-    col_weight = max(scaled_err(g_no_col, geometric).values())
+    eff_weight = max(scaled_err(g_no_eff, g_plain, geometric).values())
+    col_weight = max(scaled_err(g_no_col, g_plain, geometric).values())
     log(f"[check {name}] K2 scaled errors {' '.join(f'{k}={v:.3g}' for k, v in errs.items())} "
         f"max_abs_err={k2_abs:.3g} bound={k2_bound:g}; ct_log_t_eff max_abs={float(ct_t.abs().max()):.3g}; "
         f"dropping the ct_eff term would move the geometric gradients by {eff_weight:.3g} scaled, "
         f"dropping the colour term by {col_weight:.3g}")
+    cached_errs = scaled_err(g_cached, g_fresh)
+    cached_bwd_err = max(cached_errs.values())
+    log(f"[check {name}] cached blend through the pruned cache ({cache.gid.shape[0]} pairs) against "
+        f"the fresh blend at export parameters: K1 max_abs_err={cached_fwd_err:.3g} (bound {k1_bound:g}), "
+        f"K2 scaled errors {' '.join(f'{k}={v:.3g}' for k, v in cached_errs.items())} (bound {k2_bound:g})")
 
     failed = []
     if not k3_ok:
@@ -234,12 +298,25 @@ def check_kernels(torch, name, st, k1_bound, k2_bound):
         failed.append("K2-bound-blind-to-ct_eff")
     if not col_weight > k2_bound:
         failed.append("K2-bound-blind-to-colour-term")
-    return dict(tile_ranges_pack=k3_err, blend_fwd=k1_err, blend_bwd=k2_abs), failed
+    if not k4_bit_equal:
+        failed.append("K4-not-bit-equal-to-K1")
+    if not headline and keep_mismatch != 0:
+        failed.append("K4-keep")
+    if headline and not pruned_share > 0.0:
+        failed.append("K4-pruned-nothing")
+    if not margin_ok:
+        failed.append("K4-margin-not-honoured")
+    if not cached_fwd_err <= k1_bound:
+        failed.append("cached-K1")
+    if not cached_bwd_err <= k2_bound:
+        failed.append("cached-K2")
+    return dict(tile_ranges_pack=k3_err, blend_fwd=k1_err, blend_bwd=k2_abs, blend_fwd_export=k4_err), failed
 
 
-def check_small_training(torch, device):
-    """Three train_steps on the card against three on the CPU (plain
-    versions), from the same small scene."""
+def check_small_training(torch, device, cadence=False):
+    """Training steps on the card against the same steps on the CPU (plain
+    versions), from the same small scene: three fresh steps, or with
+    `cadence` one export step and CACHED_STEPS cached steps."""
     from gsdf_slam_tpu_torch.config import OptimizationParams
     from gsdf_slam_tpu_torch.engine import train_step
     from gsdf_slam_tpu_torch.models import AdamState, GaussianModel
@@ -260,18 +337,25 @@ def check_small_training(torch, device):
         adam = AdamState.init(model.params())
         gt = torch.from_numpy(target).to(dev)
         bg = torch.zeros(3, device=dev)
-        losses = [float(train_step(model, adam, cam, gt, None, bg, i, 1.0, cfg, opt).loss)
-                  for i in range(3)]
+        step = lambda i, **kw: train_step(model, adam, cam, gt, None, bg, i, 1.0, cfg, opt, **kw)
+        if cadence:
+            m, cache = step(0, accumulate_stats=False, export_binning_cache=True)
+            metrics = [m] + [step(1 + i, accumulate_stats=False, binning_cache=cache)
+                             for i in range(CACHED_STEPS)]
+        else:
+            metrics = [step(i) for i in range(3)]
+        losses = [float(m.loss) for m in metrics]
         results[str(dev)] = (losses, {k: p.detach().cpu() for k, p in model.params().items()})
     (l_cpu, p_cpu), (l_gpu, p_gpu) = results["cpu"], results[str(device)]
     loss_err = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
     # after step 1 Adam moves each element by about lr * sign(g): a gradient
     # that is float noise around 0 may flip sign, so parameters are held in
-    # units of the group's learning rate (at most 3 steps' worth)
+    # units of the group's learning rate
     lr = {"xyz": opt.position_lr_init, "f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20,
           "opacity": opt.opacity_lr, "scaling": opt.scaling_lr, "rotation": opt.rotation_lr}
     p_err = max(float((p_cpu[k] - p_gpu[k]).abs().max()) / lr[k] for k in p_cpu)
-    log(f"[check train] losses cpu={l_cpu} gpu={l_gpu} max_loss_err={loss_err:.3g} "
+    what = f"cadence (1 export + {CACHED_STEPS} cached steps)" if cadence else "3 fresh steps"
+    log(f"[check train] {what}: losses cpu={l_cpu} gpu={l_gpu} max_loss_err={loss_err:.3g} "
         f"max_param_err={p_err:.3g} lr units")
     return loss_err <= 1e-5 and p_err <= 6.0
 
@@ -293,6 +377,150 @@ def profile_steps(torch, step, steps=3):
         e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA
     ) / 1e3 / steps
     return dev_ms, wall_ms, events.table(sort_by="self_device_time_total", row_limit=15)
+
+
+def clone_state(model, adam):
+    """An independent copy of the map and its Adam state."""
+    from gsdf_slam_tpu_torch.models import AdamState, GaussianModel
+
+    m = GaussianModel({k: p.detach().clone() for k, p in model.params().items()})
+    for k, buf in m.named_buffers():
+        buf.copy_(getattr(model, k))
+    a = AdamState(m={k: v.clone() for k, v in adam.m.items()},
+                  v={k: v.clone() for k, v in adam.v.items()}, step=adam.step)
+    return m, a
+
+
+def count_syncs(torch, fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("warn"): the number of
+    synchronizing CUDA operations torch reports, and where they were called."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in rec if "synchroniz" in str(w.message)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    where = Counter(f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in syncs)
+    return len(syncs), dict(where)
+
+
+def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
+    """The mapper's post-densify cadence at the headline (one export step,
+    then CACHED_STEPS cached steps, accumulate_stats=False as
+    engine/mapper.py:796 uses) against as many fresh steps, from the same
+    state, in turns: fresh, cadence, cadence, fresh. Returns the launch
+    counts of the first cadence and the failed checks."""
+    from gsdf_slam_tpu_torch import kernels
+    from gsdf_slam_tpu_torch.engine import train_step
+
+    n = 1 + CACHED_STEPS
+    it0 = 1000
+
+    def stepper(m, a):
+        return lambda i, **kw: train_step(m, a, cam, gt, None, bg, it0 + i, 1.0, cfg, opt,
+                                          accumulate_stats=False, **kw)
+
+    def fresh_run(step):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        ev[0].record()
+        metrics = []
+        for i in range(n):
+            metrics.append(step(i))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return metrics, [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+
+    def cadence_run(step):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        ev[0].record()
+        m, cache = step(0, export_binning_cache=True)
+        ev[1].record()
+        metrics = [m]
+        for i in range(1, n):
+            metrics.append(step(i, binning_cache=cache))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return metrics, [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])], cache
+
+    failed = []
+    # warm-up on a scratch copy: the first export and cached step allocate
+    wm, wa = clone_state(model, adam)
+    cadence_run(stepper(wm, wa))
+    del wm, wa
+
+    fresh_ms, export_ms, cached_ms, first_launches = [], [], [], None
+    med = lambda v: float(np.median(v))
+    # the host's speed drifts within a call: each cadence is read against
+    # the fresh run next to it
+    turn_median = []
+    want = {"blend_fwd_export": 1, "tile_ranges_pack": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n}
+    for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
+        m, a = clone_state(model, adam)
+        if kind == "fresh":
+            metrics, ms = fresh_run(stepper(m, a))
+            fresh_ms += ms
+            turn_median.append(med(ms))
+        else:
+            kernels.reset_launch_counts()
+            metrics, ms, cache = cadence_run(stepper(m, a))
+            launches = dict(kernels.LAUNCHES)
+            export_ms.append(ms[0])
+            cached_ms += ms[1:]
+            turn_median.append(med(ms[1:]))
+            first_launches = first_launches or launches
+            log(f"[cadence] run {turn}: launches {launches} (want {want}); cache of "
+                f"{cache.gid.shape[0]} pairs, {cache.total_pairs} before the cull")
+            if launches != want:
+                failed.append(f"cadence:launches-{launches}")
+        losses = [float(x.loss) for x in metrics]
+        log(f"[cadence] run {turn} {kind}: losses {losses}")
+        log(f"[cadence] run {turn} {kind}: per-step ms {[round(v, 4) for v in ms]}")
+        if not all(math.isfinite(v) for v in losses):
+            failed.append(f"cadence:{kind}-loss-not-finite")
+        if turn == 0:
+            fresh_first = losses[0]
+        elif kind == "cadence":
+            # K4 is bit-equal to K1, so the export step renders as the fresh step
+            log(f"[cadence] run {turn}: export-step loss - fresh-step loss = {losses[0] - fresh_first:.3g}")
+            if abs(losses[0] - fresh_first) > 1e-6:
+                failed.append("cadence:export-step-loss-differs-from-fresh")
+        del m, a
+    log(f"[cadence] median per run (fresh steps; cached steps): {[round(v, 4) for v in turn_median]}; "
+        f"cached minus the fresh run beside it: {turn_median[1] - turn_median[0]:.4f}, "
+        f"{turn_median[2] - turn_median[3]:.4f} ms")
+    log(f"[cadence] step medians on CUDA events: fresh {med(fresh_ms):.4f} ms (n={len(fresh_ms)}), "
+        f"export {med(export_ms):.4f} ms (n={len(export_ms)}), cached {med(cached_ms):.4f} ms "
+        f"(n={len(cached_ms)}); fresh - cached {med(fresh_ms) - med(cached_ms):.4f} ms; "
+        f"mean over the cadence {(sum(export_ms) + sum(cached_ms)) / (len(export_ms) + len(cached_ms)):.4f} "
+        f"ms/step on {smi}")
+
+    m, a = clone_state(model, adam)
+    step = stepper(m, a)
+    _, cache = step(0, export_binning_cache=True)
+    kinds = {
+        "fresh": lambda it: step(it),
+        "export": lambda it: step(it, export_binning_cache=True),
+        "cached": lambda it: step(it, binning_cache=cache),
+    }
+    for kind, fn in kinds.items():
+        dev_ms, wall_ms, table = profile_steps(torch, fn, steps=1)
+        log(f"[cadence] profiled one {kind} step: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
+            f"(idle share {1 - dev_ms / wall_ms:.3f}, profiler on)")
+        if kind == "cached":
+            for line in table.splitlines()[:14]:
+                log(f"[profile cached] {line}")
+    for kind, fn in kinds.items():
+        count, where = count_syncs(torch, lambda: fn(2000))
+        log(f"[cadence] host syncs torch reports in one {kind} step: {count} at {where}")
+    return first_launches or {}, failed
 
 
 def time_cuda(torch, fn, iters):
@@ -368,12 +596,15 @@ def main() -> int:
     hargs = (model.xyz.detach(), model.scaling_act().detach(), model.rotation_act().detach(),
              model.opacity_act()[:, 0].detach(), model.f_dc.detach(), model.f_rest.detach())
     st_head = stage_inputs(torch, hargs, cam_h, WIDTH, HEIGHT)
-    head_err, f = check_kernels(torch, f"{WIDTH}x{HEIGHT}", st_head, K1_HEADLINE, K2_HEADLINE)
+    head_err, f = check_kernels(torch, f"{WIDTH}x{HEIGHT}", st_head, K1_HEADLINE, K2_HEADLINE,
+                                headline=True)
     failed += [f"{k}@headline" for k in f]
     torch.cuda.synchronize()
 
     if not check_small_training(torch, device):
         failed.append("train@64x64")
+    if not check_small_training(torch, device, cadence=True):
+        failed.append("cadence@64x64")
     torch.cuda.synchronize()
 
     # ---- 4. main path
@@ -415,9 +646,11 @@ def main() -> int:
         failed.append("main:loss-not-finite")
     if model.count != n0:
         failed.append("main:count-changed")
-    for name, n in launches.items():
-        if n < WARMUP + TIMED:
-            failed.append(f"main:{name}-launched-{n}")
+    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd"):
+        if launches[name] < WARMUP + TIMED:
+            failed.append(f"main:{name}-launched-{launches[name]}")
+    if launches["blend_fwd_export"] != 0:
+        failed.append("main:fresh-step-launched-K4")
 
     dev_ms, wall_ms, table = profile_steps(
         torch, lambda it: train_step(model, adam, cam_h, gt, None, bg, it, 1.0, cfg, opt)
@@ -426,6 +659,10 @@ def main() -> int:
         f"(idle share {1 - dev_ms / wall_ms:.3f}, profiler on); top rows over the 3 steps:")
     for line in table.splitlines():
         log(f"[profile] {line}")
+
+    # ---- 4b. main path: the cached-binning cadence, against fresh binning
+    cad_launches, f = drive_cadence(torch, model, adam, cam_h, gt, bg, cfg, opt, smi)
+    failed += f
 
     # ---- 5. kernel times at the headline shapes
     st = st_head
@@ -442,7 +679,11 @@ def main() -> int:
         "blend_fwd": (lambda: tile_blend.blend_fwd(ranges, payload, st["gw"], st["gh"]),
                       lambda: blend.blend_fwd_plain(ranges, payload, st["gw"], st["gh"])),
         "blend_bwd": (lambda: tile_blend.blend_bwd(*a2), lambda: blend.blend_bwd_plain(*a2)),
+        "blend_fwd_export": (
+            lambda: tile_blend.blend_fwd_export(ranges, payload, st["gw"], st["gh"], MARGIN),
+            lambda: blend.blend_fwd_plain(ranges, payload, st["gw"], st["gh"], keep_margin=MARGIN)),
     }
+    launches = {**launches, "blend_fwd_export": cad_launches.get("blend_fwd_export", 0)}
     entries = []
     for name, (kern, plain) in timings.items():
         p0 = time_cuda(torch, plain, 3)

@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in `csrc/` have a plain C interface. They are compiled with
-`nvcc` for `sm_90a` into one shared library at first use, into
-`build/torch_kernels/` beside the package (listed in `.gitignore`), and
-loaded with ctypes. The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt. There is no fallback: if `nvcc` or
-the card is missing, `library()` raises.
+The sources in `csrc/` have a plain C interface. At first use each is
+compiled with `nvcc` for `sm_90a`, all at once in parallel, and the
+objects are linked into one shared library in `build/torch_kernels/`
+beside the package (listed in `.gitignore`), loaded with ctypes. The
+library's name carries a hash of the sources and flags, so an edited
+source is rebuilt. There is no fallback: if `nvcc` or the card is missing,
+`library()` raises.
 
 Each wrapper that launches a kernel adds one to its entry of `LAUNCHES`
 right where it launches, and nowhere else.
@@ -25,15 +26,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# K1 blend_fwd and K4 blend_fwd_export share blend_fwd.cu
 SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0}
+LAUNCHES = {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,9 @@ _SIGNATURES = {
     "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
     # ranges, payload, M, num_tiles, grid_w, accum, log_t_eff, n_contrib, stream
     "gsdf_blend_fwd": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, log_exit, accum, log_t_eff,
+    # n_contrib, keep, stream
+    "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P),
     # ranges, payload, gid, M, num_tiles, grid_w, log_t_eff, n_contrib,
     # ct_accum, ct_log_t_eff, grads, stream
     "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P),
@@ -68,7 +73,8 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into one shared library unless it is already built."""
+    """Compile csrc/*.cu into one shared library unless it is already built:
+    one `nvcc -c` per source, all started together, then one link."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
@@ -80,15 +86,34 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs, failed = [], []
+        for s, p in zip(SOURCES, procs):
+            logs.append(p.communicate()[0])
+            if p.returncode != 0:
+                failed.append(f"{s} ({p.returncode})")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=secs, cached=False, log=res.stdout + res.stderr)
+    build_info.update(path=str(out), seconds=secs, cached=False, log=log + res.stdout + res.stderr)
     return out
 
 

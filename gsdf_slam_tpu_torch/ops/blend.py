@@ -4,6 +4,7 @@ Port of `gsdf_slam_tpu/ops/blend.py`. `blend_fwd_plain` and
 `blend_bwd_plain` are the plain PyTorch versions of kernels K1 and K2
 (`ops/tile_blend.py`): the chunked scans `_forward_scan` and
 `_backward_scan`, reading the contiguous sorted payload that K3 packs.
+`blend_fwd_plain` with `keep_margin` is also the plain version of K4.
 
 Early-termination parity (PARITY.md D9): the reference stops a pixel once
 T * (1 - alpha) < 1e-4 (forward.cu:437-442). Raw transmittance never
@@ -86,9 +87,20 @@ def _geometry(pl: torch.Tensor, t: torch.Tensor, grid_w: int, dxl, dyl):
     return alpha, live, g, dx, dy
 
 
-def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int):
+def keep_log_exit(margin: float) -> float:
+    """The export keep test's threshold log(T_EPS / margin), rounded to
+    float32 as the TPU kernel compares it (pallas_blend_grouped.py:109)."""
+    return float(np.float32(np.log(T_EPS) - np.log(margin)))
+
+
+def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int, keep_margin: float | None = None):
     """Plain version of K1. Returns accum [T,256,3], log_t_eff [T,256] and
-    n_contrib [T,256] int32."""
+    n_contrib [T,256] int32.
+
+    With `keep_margin`, the plain version of K4: it also returns keep [M]
+    bool, True for a pair that some pixel of its tile sees live (alpha > 0)
+    while the pixel's exclusive raw log T is >= log(T_EPS / keep_margin)
+    (`_fwd_kernel` with keep_margin, pallas_blend_grouped.py:173-184)."""
     dev = payload.device
     num_tiles = grid_w * grid_h
     m = payload.shape[1]
@@ -97,6 +109,7 @@ def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int):
     log_eff = torch.zeros((num_tiles, PIX_PER_TILE), device=dev)
     accum = torch.zeros((num_tiles, PIX_PER_TILE, 3), device=dev)
     n_contrib = torch.zeros((num_tiles, PIX_PER_TILE), dtype=torch.int32, device=dev)
+    keep = None if keep_margin is None else torch.zeros((m,), dtype=torch.bool, device=dev)
     tile, local = pair_tiles(ranges, m)
     for s in range(0, m, PLAIN_CHUNK):
         t = tile[s : s + PLAIN_CHUNK]
@@ -116,6 +129,11 @@ def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int):
         idx = (local[s : s + PLAIN_CHUNK] + 1).to(torch.int32)[:, None]
         cand = torch.where(applied & live, idx, 0)
         n_contrib.scatter_reduce_(0, t[:, None].expand_as(cand), cand, reduce="amax")
+        if keep is not None:
+            seen = live & ((carry + excl.to(torch.float32)) >= keep_log_exit(keep_margin))
+            keep[s : s + PLAIN_CHUNK] = seen.any(1)
+    if keep is not None:
+        return accum, log_eff, n_contrib, keep
     return accum, log_eff, n_contrib
 
 

@@ -1,8 +1,10 @@
 """Port parity: the blend (`FreshBlend`: binning, K1/K2 plain versions on
-the CPU) against the JAX XLA blend and against the grouped Pallas kernels
-(`blend_tiles_grouped_fused`, interpret mode, group 8), forward and
-gradients. Bars of tests/test_pallas_blend.py: 5e-6 absolute for the
-accumulated colour and log T, 2e-5 for gradients after scaling."""
+the CPU) against the JAX XLA blend, against the grouped Pallas kernels
+(`blend_tiles_grouped_fused`, interpret mode, group 8) and against the
+per-tile Pallas kernels (`pallas_blend.py::blend_tiles_pallas`, the path
+`render` takes with `pallas_group=1`), forward and gradients. Bars of
+tests/test_pallas_blend.py: 5e-6 absolute for the accumulated colour and
+log T, 2e-5 for gradients after scaling."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from torch_port_helpers import (
 
 from gsdf_slam_tpu.ops import binning as jbin
 from gsdf_slam_tpu.ops import blend as jblend
+from gsdf_slam_tpu.ops import pallas_blend as jpb
 from gsdf_slam_tpu.ops import pallas_blend_grouped as jpbg
 from gsdf_slam_tpu.ops import projection as jproj
 from gsdf_slam_tpu_torch.ops import binning, blend, projection, tile_blend
@@ -25,14 +28,20 @@ GRID = 4
 def _jax_blend(path):
     def run(pre, m2, con, op, col):
         pre = pre._replace(means2d=m2, conics=con, colors=col)
-        if path == "xla":
+        if path in ("xla", "pallas_group1"):
             b = jbin.bin_gaussians(
                 jax.lax.stop_gradient(pre), jax.lax.stop_gradient(op),
                 grid_w=GRID, grid_h=GRID, max_pairs=4096,
             )
+        if path == "xla":
             return jblend.blend_tiles(
                 b.pair_tile, b.pair_gauss, m2, con, op, col, b.total_pairs,
                 grid_w=GRID, grid_h=GRID, chunk=128,
+            )
+        if path == "pallas_group1":  # rasterize.py:253-271
+            a = jbin.align_pairs(b, m2.shape[0], num_tiles=GRID * GRID, chunk=128)
+            return jpb.blend_tiles_pallas(
+                a.ranges, a.pair_gauss, m2, con, op, col, grid_w=GRID, grid_h=GRID, chunk=128
             )
         acc, lte, _ = jpbg.blend_tiles_grouped_fused(
             pre, op, grid_w=GRID, grid_h=GRID, max_pairs=4096, chunk=128, group=8
@@ -42,7 +51,7 @@ def _jax_blend(path):
     return run
 
 
-@pytest.mark.parametrize("path", ["xla", "pallas_group8"])
+@pytest.mark.parametrize("path", ["xla", "pallas_group8", "pallas_group1"])
 def test_fresh_blend_matches_jax(path):
     s = scene_arrays()
     pre = jax.jit(

@@ -70,6 +70,19 @@ def test_k1_k2_match_plain(staged):
         assert float((g[:, sl] - g_p[:, sl]).abs().max()) / scale <= 2e-5
 
 
+def test_k4_bit_equal_to_k1_and_keep_matches_plain(staged):
+    keys, order, pair_gid, table, _ = staged
+    ranges, _, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
+    k1 = tile_blend.blend_fwd(ranges, payload, 4, 4)
+    for margin in (1.0, 10.0):
+        *k4, keep = tile_blend.blend_fwd_export(ranges, payload, 4, 4, margin)
+        *_, keep_p = blend.blend_fwd_plain(ranges, payload, 4, 4, keep_margin=margin)
+        torch.cuda.synchronize()
+        for a, b in zip(k1, k4):
+            assert torch.equal(a, b)
+        assert torch.equal(keep, keep_p)
+
+
 def test_render_gradients_match_cpu(dev):
     """The whole render on the card against the CPU (plain versions)."""
     s = scene_arrays()
@@ -83,8 +96,8 @@ def test_render_gradients_match_cpu(dev):
         grads = torch.autograd.grad(loss, params)
         outs[str(d)] = (out.image.detach().cpu(), [x.cpu() for x in grads], dict(kernels.LAUNCHES))
     (img_c, g_c, n_c), (img_g, g_g, n_g) = outs["cpu"], outs[str(dev)]
-    assert n_c == {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0}
-    assert n_g == {"tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1}
+    assert n_c == {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0}
+    assert n_g == {"tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1, "blend_fwd_export": 0}
     assert float((img_c - img_g).abs().max()) <= 5e-6
     for a, b in zip(g_c, g_g):
         assert float((a - b).abs().max()) / max(float(a.abs().max()), 1e-4) <= 2e-5

@@ -67,7 +67,7 @@ def no_kernel_library(monkeypatch, tmp_path):
     kernels.reset_launch_counts()
 
 
-@pytest.mark.parametrize("wrapper", ["tile_ranges_pack", "blend_fwd", "blend_bwd"])
+@pytest.mark.parametrize("wrapper", ["tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export"])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
         raise AssertionError("fell back to the plain version")
@@ -80,6 +80,7 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
         "tile_ranges_pack": lambda: binning.tile_ranges_pack(
             z(4, dt=torch.int64), z(4, dt=torch.int64), z(4, dt=torch.int32), z(3, 9), 16),
         "blend_fwd": lambda: tile_blend.blend_fwd(z(16, 2, dt=torch.int32), z(9, 4), 4, 4),
+        "blend_fwd_export": lambda: tile_blend.blend_fwd_export(z(16, 2, dt=torch.int32), z(9, 4), 4, 4, 10.0),
         "blend_bwd": lambda: tile_blend.blend_bwd(
             z(16, 2, dt=torch.int32), z(9, 4), z(4, dt=torch.int32), z(16, 256),
             z(16, 256, dt=torch.int32), z(16, 256, 3), z(16, 256), 3, 4, 4),
