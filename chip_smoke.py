@@ -24,7 +24,14 @@ Phases, each printing its own lines:
    timed on CUDA events, with the launch counts of each cadence; one fresh,
    one export and one cached step under torch.profiler, and each under
    torch.cuda.set_sync_debug_mode("warn") to count host syncs;
-5. kernel times: each kernel and its plain version at the headline shapes.
+5. kernel times: each kernel and its plain version at the headline shapes;
+6. probes: each probe kernel (blend_probe_fwd in its six modes,
+   blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
+   version on the 64x64 scene and on the opaque wall (32x32, where the
+   chunk exit fires) at chunks of 128 and 16, and on the headline; then the
+   probe path through its entry points, `probes.kernel_probe.main` and
+   `probes.expand_probe.main`, with the launch counts taken over exactly
+   that run; then each probe kernel's time beside its plain version's.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -37,17 +44,11 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-WIDTH, HEIGHT = 1200, 680
-N_HEADLINE = 400_000
-# pair-count calibration of the converged scene (bench.py CALIB
-# "1200x680/400000"): the scale multiplier that bins ~2.5 pairs per Gaussian
-SCALE_MULT = 2.59368
 WARMUP, TIMED = 3, 10
 
 # Bounds, each with its reason (PERF.md "Kernel checks").
@@ -82,7 +83,30 @@ KERNELS = {
         source="gsdf_slam_tpu_torch/csrc/blend_fwd.cu",
         replaces="gsdf_slam_tpu/ops/pallas_blend_grouped.py:89 (keep_margin)",
     ),
+    # phase 6, the probe path: each replaces the JAX probe's pallas_call
+    "blend_probe_fwd": dict(
+        source="gsdf_slam_tpu_torch/csrc/blend_probe.cu",
+        replaces="benchmarks/kernel_probe.py:738",
+    ),
+    "blend_probe_fwd_pair2": dict(
+        source="gsdf_slam_tpu_torch/csrc/blend_probe.cu",
+        replaces="benchmarks/kernel_probe.py:995",
+    ),
+    "blend_probe_bwd": dict(
+        source="gsdf_slam_tpu_torch/csrc/blend_probe.cu",
+        replaces="benchmarks/kernel_probe.py:567",
+    ),
+    "expand_gather": dict(
+        source="gsdf_slam_tpu_torch/csrc/expand_gather.cu",
+        replaces="benchmarks/expand_probe.py:102",
+    ),
 }
+PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
+# chunk sizes of the probe checks on the small scenes: at 16 pairs a tile
+# spans several chunks, so multi-chunk walks and the lock step are exercised
+PROBE_CHUNKS = (128, 16)
+# the expansion probe's larger target, ~1M pair lanes as at the headline
+EXPAND_MP = 1_048_576
 # RasterizeConfig's default cache_prune_margin, the mapper's setting
 MARGIN = 10.0
 # the cadence after densify_until_iter (engine/settings.py:97): one export
@@ -92,33 +116,6 @@ CACHED_STEPS = 7
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def headline_scene(torch, device, n=N_HEADLINE, seed=0):
-    """bench.py::build_scene(converged=True) as a numpy + scipy recipe:
-    Gaussians on the walls of an 8 m box seen from its centre, opacity 0.5,
-    scales from the exact 3-NN times the pair-count calibration."""
-    from gsdf_slam_tpu_torch.models import GaussianModel
-
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-    ax = rng.integers(0, 3, n)
-    sign = rng.choice([-4.0, 4.0], n)
-    pts[np.arange(n), ax] = sign
-    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    model = GaussianModel.create_from_pcd(pts, cols, device=device)
-    with torch.no_grad():
-        model.opacity.zero_()  # inverse_sigmoid(0.5)
-        model.scaling.add_(float(np.float32(np.log(SCALE_MULT))))
-    return model
-
-
-def headline_camera(device):
-    from gsdf_slam_tpu_torch.ops import CameraMatrices
-
-    fovx = 2 * np.arctan(WIDTH / (2 * 600.0))
-    fovy = 2 * np.arctan(HEIGHT / (2 * 600.0))
-    return CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), fovx, fovy, device=device)
 
 
 def small_scene(torch, device, p=96, seed=1):
@@ -461,7 +458,8 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     # the host's speed drifts within a call: each cadence is read against
     # the fresh run next to it
     turn_median = []
-    want = {"blend_fwd_export": 1, "tile_ranges_pack": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n}
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0),
+            "blend_fwd_export": 1, "tile_ranges_pack": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
         m, a = clone_state(model, adam)
         if kind == "fresh":
@@ -523,17 +521,85 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     return first_launches or {}, failed
 
 
-def time_cuda(torch, fn, iters):
-    fn()
+def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
+    """The probe kernels against their plain versions on one binning (K3's),
+    by the comparisons of probes/checks.py: every forward mode, pair2 (also
+    against the chunk_exit kernel) and the backward (also folded per
+    Gaussian against K2). At the headline, also the plain backward with the
+    JAX body's float32 carry, rounded once per chunk, against the float64
+    carry of the kernel: the gap and the pixels whose applied pairs differ.
+    Returns the largest forward error, pair2's error, the backward's max
+    abs error, the tiles on which the chunk exit fired, and the failed
+    checks."""
+    from gsdf_slam_tpu_torch.ops import binning, blend, blend_probe, tile_blend
+    from gsdf_slam_tpu_torch.probes import checks
+
+    gw, gh = st["gw"], st["gh"]
+    ranges, gid, payload = binning.tile_ranges_pack(
+        st["keys"], st["order"], st["pair_gid"], st["table"], gw * gh)
+    n_chunks = (ranges[:, 1] - ranges[:, 0] + chunk - 1) // chunk
+    tag = f"[probe {name} chunk {chunk}]"
+    failed = []
+
+    outs, fwd_err = {}, 0.0
+    for mode in blend_probe.FWD_MODES:
+        got = blend_probe.blend_probe_fwd(ranges, payload, gw, gh, mode, chunk)
+        want = blend_probe.blend_probe_fwd_plain(ranges, payload, gw, gh, mode, chunk)
+        torch.cuda.synchronize()
+        e, f = checks.fwd_check(mode, got, want, payload, ranges, fwd_bound, headline)
+        outs[mode] = got
+        fwd_err = max(fwd_err, e["accum"], e["t_eff"], e["t_raw"])
+        floor = (f"; log_t_eff / {blend_probe.FLOOR_SCALE:g} err {e['floor_sum']:.3g} of the tile's "
+                 f"sum of |mean x| (bound {checks.FLOOR_RTOL:g})" if mode == "floor" else "")
+        log(f"{tag} {mode}: accum err {e['accum']:.3g} (scaled), T_eff {e['t_eff']:.3g}, T_raw "
+            f"{e['t_raw']:.3g}, n_done differs on {e['n_done']} of {len(got[3])} tiles; pixels whose "
+            f"applied set differs {e['flips']}; chunks walked {int(got[3].sum())} of "
+            f"{int(n_chunks.sum())}; bound {fwd_bound:g}{floor}")
+        failed += [f"probe-{k}" for k in f]
+    exits = int((outs["chunk_exit"][3] < n_chunks).sum())
+    log(f"{tag} the chunk exit fired on {exits} of {len(n_chunks)} tiles")
+
+    got = blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh, chunk)
+    want = blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, gw, gh, chunk)
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
+    e, f = checks.pair2_check(got, want, outs["chunk_exit"], payload, ranges, fwd_bound, headline)
+    pair_err = max(e["accum"], e["t_eff"], e["t_raw"])
+    log(f"{tag} pair2: accum err {e['accum']:.3g}, T_eff {e['t_eff']:.3g}, T_raw {e['t_raw']:.3g}, "
+        f"n_done differs on {e['n_done']} tiles; pixels whose applied set differs {e['flips']}; "
+        f"bit-equal to the chunk_exit kernel with n_done the pair's max: {e['as_chunk_exit']}")
+    failed += [f"probe-{k}" for k in f]
+
+    _, _, raw, nd = blend_probe.blend_probe_fwd_plain(ranges, payload, gw, gh, "chunk_exit", chunk)
+    gen = torch.Generator(device=raw.device).manual_seed(0)
+    ct_a = torch.randn(raw.shape + (3,), generator=gen, device=raw.device)
+    ct_t = torch.randn(raw.shape, generator=gen, device=raw.device)
+    bargs = (ranges, payload, nd, raw, ct_a, ct_t, gw, gh, chunk)
+    g_k = blend_probe.blend_probe_bwd(*bargs)
+    g_again = blend_probe.blend_probe_bwd(*bargs)
+    g_p, applied = blend_probe.blend_probe_bwd_plain(*bargs, with_applied=True)
+    _, lte, nc = blend.blend_fwd_plain(ranges, payload, gw, gh)
+    k2 = tile_blend.blend_bwd(ranges, payload, gid, lte, nc, ct_a, ct_t, st["p"], gw, gh)
+    folded = torch.zeros_like(k2).index_add_(0, gid.to(torch.int64), g_k.t())
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    e, f = checks.bwd_check(g_k, g_again, g_p, bwd_bound)
+    fold = checks.scaled_errors(folded.t(), k2.t())
+    log(f"{tag} bwd: scaled errors {' '.join(f'{k}={e[k]:.3g}' for k in checks.FIELDS)} max_abs_err="
+        f"{e['max_abs']:.3g} bound {bwd_bound:g}; two launches bit-equal: {e['deterministic']}; folded "
+        f"per Gaussian against K2: {' '.join(f'{k}={v:.3g}' for k, v in fold.items())}")
+    failed += [f"probe-{k}" for k in f]
+    # at the headline a pair at the T = 1e-4 frontier may apply in one plain
+    # forward and not the other, so the fold is printed there, not bounded
+    if not headline and not all(v <= bwd_bound for v in fold.values()):
+        failed.append("probe-bwd-fold-not-K2")
+    if headline:
+        g32, applied32 = blend_probe.blend_probe_bwd_plain(*bargs, chunk_carry32=True, with_applied=True)
+        gap = checks.scaled_errors(g32, g_p)
+        moved = (applied32 != applied).sum()
+        log(f"{tag} bwd with the JAX body's float32 carry (rounded once per chunk) against the float64 "
+            f"carry: scaled {' '.join(f'{k}={v:.3g}' for k, v in gap.items())}; applied pairs differ at "
+            f"{int(moved)} of {applied.numel()} pixels, by {int((applied32 - applied).abs().sum())} "
+            f"pixel-pairs in all, of {int(applied.sum())} applied")
+    return dict(fwd=fwd_err, pair2=pair_err, bwd=e["max_abs"], exits=exits), failed
 
 
 def main() -> int:
@@ -556,7 +622,12 @@ def main() -> int:
     from gsdf_slam_tpu_torch.config import OptimizationParams
     from gsdf_slam_tpu_torch.engine import train_step
     from gsdf_slam_tpu_torch.models import AdamState
-    from gsdf_slam_tpu_torch.ops import RasterizeConfig, binning, blend, tile_blend
+    from gsdf_slam_tpu_torch.ops import RasterizeConfig, binning, blend, blend_probe, tile_blend
+    from gsdf_slam_tpu_torch.probes import checks, expand_probe, kernel_probe
+    from gsdf_slam_tpu_torch.probes.timing import cuda_ms, require_cuda
+    from gsdf_slam_tpu_torch.probes.scene import (
+        HEIGHT, WALL_SIZE, WIDTH, headline_camera, headline_scene, wall_scene,
+    )
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -564,10 +635,7 @@ def main() -> int:
     failed: list[str] = []
 
     # ---- 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = require_cuda()
     log("[device] nvidia-smi:")
     log(smi)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -590,7 +658,7 @@ def main() -> int:
     failed += [f"{k}@64x64" for k in f]
 
     t0 = time.perf_counter()
-    model = headline_scene(torch, device)
+    model = headline_scene(device)
     cam_h = headline_camera(device)
     log(f"[main] headline scene {model.count} Gaussians built in {time.perf_counter() - t0:.2f} s")
     hargs = (model.xyz.detach(), model.scaling_act().detach(), model.rotation_act().detach(),
@@ -685,16 +753,75 @@ def main() -> int:
     }
     launches = {**launches, "blend_fwd_export": cad_launches.get("blend_fwd_export", 0)}
     entries = []
-    for name, (kern, plain) in timings.items():
-        p0 = time_cuda(torch, plain, 3)
-        k0 = time_cuda(torch, kern, 20)
-        k1 = time_cuda(torch, kern, 20)
-        p1 = time_cuda(torch, plain, 3)
+
+    def time_entry(name, kern, plain, shapes, count, err):
+        # in turns: plain, kernel, kernel, plain
+        p0 = cuda_ms(plain, 3)
+        k0 = cuda_ms(kern, 20)
+        k1 = cuda_ms(kern, 20)
+        p1 = cuda_ms(plain, 3)
         ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
         log(f"[time] {name}: kernel {ms:.4f} ms (runs {k0:.4f}, {k1:.4f}), plain {plain_ms:.4f} ms "
-            f"(runs {p0:.4f}, {p1:.4f}) at {pairs_live} pairs, {num_tiles} tiles on {smi}")
-        entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
-                            max_abs_err=head_err[name], ms=ms, plain_ms=plain_ms))
+            f"(runs {p0:.4f}, {p1:.4f}) at {shapes} on {smi}")
+        entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=count,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+
+    for name, (kern, plain) in timings.items():
+        time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles", launches[name], head_err[name])
+
+    # ---- 6. probes: each probe kernel against its plain version on the
+    # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;
+    # then the probe path through its two entry points, with the launch
+    # counts taken over exactly that run; then each probe kernel's time
+    wargs, wcam = wall_scene(device)
+    st_wall = stage_inputs(torch, wargs, wcam, WALL_SIZE, WALL_SIZE)
+    for chunk in PROBE_CHUNKS:
+        for nm, stp in (("64x64", st_small), (f"wall {WALL_SIZE}x{WALL_SIZE}", st_wall)):
+            res, f = check_probes(torch, nm, stp, chunk, checks.FWD_SMALL, checks.BWD_SMALL)
+            failed += [f"{k}@{nm}/chunk{chunk}" for k in f]
+            if stp is st_wall and chunk == 16 and res["exits"] == 0:
+                failed.append("probe-wall-exit-never-fired")
+    probe_err, f = check_probes(torch, f"{WIDTH}x{HEIGHT}", st_head, 128, K1_HEADLINE, K2_HEADLINE,
+                                headline=True)
+    failed += [f"{k}@headline" for k in f]
+
+    kernels.reset_launch_counts()
+    probe_ms = kernel_probe.main([])
+    expand = expand_probe.main([])
+    probe_launches = dict(kernels.LAUNCHES)
+    log(f"[probe] launches over the probe path: {probe_launches}")
+    log(f"[probe] kernel_probe ms: {json.dumps(probe_ms)}")
+    log(f"[probe] expand_probe: {json.dumps(expand)}")
+    for name in PROBES:
+        if probe_launches[name] == 0:
+            failed.append(f"probe-path:{name}-not-launched")
+    if not all(r["bit_equal"] for r in expand.values()):
+        failed.append("probe-path:expand_gather-not-bit-equal")
+
+    gw, gh = st["gw"], st["gh"]
+    _, _, raw, nd = blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit")
+    ct_pa, ct_pt = kernel_probe.cotangents(num_tiles, device)
+    pb = (ranges, payload, nd, raw, ct_pa, ct_pt, gw, gh)
+    mp = EXPAND_MP
+    p = max(mp // 3, 1000) // 128 * 128
+    table, rank, g0, lr = (torch.from_numpy(a).to(device) for a in expand_probe.build(mp, p)[:4])
+    exp_err = float((blend_probe.expand_gather(table, g0, lr) - table[:, rank.to(torch.int64)]).abs().max())
+    probe_timings = {
+        "blend_probe_fwd": (lambda: blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit"),
+                            lambda: blend_probe.blend_probe_fwd_plain(ranges, payload, gw, gh, "chunk_exit"),
+                            probe_err["fwd"]),
+        "blend_probe_fwd_pair2": (lambda: blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh),
+                                  lambda: blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, gw, gh),
+                                  probe_err["pair2"]),
+        "blend_probe_bwd": (lambda: blend_probe.blend_probe_bwd(*pb),
+                            lambda: blend_probe.blend_probe_bwd_plain(*pb), probe_err["bwd"]),
+    }
+    for name, (kern, plain, err) in probe_timings.items():
+        time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles, chunk 128",
+                   probe_launches[name], err)
+    time_entry("expand_gather", lambda: blend_probe.expand_gather(table, g0, lr),
+               lambda: blend_probe.expand_gather_plain(table, g0, lr), f"mp {mp}, p {p}",
+               probe_launches["expand_gather"], exp_err)
 
     torch.cuda.synchronize()
     if failed:

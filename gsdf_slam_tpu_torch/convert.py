@@ -4,8 +4,9 @@
 `from_jax_adam` those of an `AdamState`, as numpy arrays (for example
 `{k: np.asarray(v) for k, v in state.params().items()}`), keeps the live
 prefix `[:count]` and returns the port's counterpart. `from_jax_cache`
-turns a JAX `BinningCache` into the port's per-tile cache. No jax is
-needed.
+turns a JAX `BinningCache` into the port's per-tile cache, and
+`from_jax_pairs` a one-tile-per-group `SortedPairs` into the port's
+binning. No jax is needed.
 """
 
 from __future__ import annotations
@@ -54,6 +55,21 @@ def to_numpy_state(model: GaussianModel) -> dict[str, np.ndarray]:
     out = {k: p.detach().cpu().numpy() for k, p in model.params().items()}
     out.update({k: getattr(model, k).cpu().numpy() for k in _STATS})
     return out
+
+
+def from_jax_pairs(ranges: np.ndarray, pairs: np.ndarray, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The port's binning from a JAX `SortedPairs` built with `group=1`:
+    `ranges` [2, NT] (chunk-aligned start and count of each tile) and
+    `pairs` [16, MPA] (rows 0-8 the blend payload). Returns ranges [T, 2]
+    int32 ([start, end) of each tile) and payload [9, M] float32, the tiles'
+    pairs back to back without the padding lanes between them."""
+    starts, counts = np.asarray(ranges).astype(np.int64)
+    lanes = [np.arange(s, s + n) for s, n in zip(starts, counts)]
+    lane = np.concatenate(lanes) if lanes else np.zeros(0, np.int64)
+    ends = np.cumsum(counts)
+    out = np.stack([ends - counts, ends], axis=1).astype(np.int32)
+    payload = np.ascontiguousarray(np.asarray(pairs)[:9, lane], dtype=np.float32)
+    return torch.as_tensor(out, device=device), torch.as_tensor(payload, device=device)
 
 
 def from_jax_cache(

@@ -26,8 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-# K1 blend_fwd and K4 blend_fwd_export share blend_fwd.cu
-SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu")
+# K1 blend_fwd and K4 blend_fwd_export share blend_fwd.cu; the three blend
+# probes share blend_probe.cu
+SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu", "blend_probe.cu", "expand_gather.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -35,7 +36,10 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES = {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0}
+LAUNCHES = {
+    "tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0,
+    "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +55,17 @@ _SIGNATURES = {
     # ranges, payload, gid, M, num_tiles, grid_w, log_t_eff, n_contrib,
     # ct_accum, ct_log_t_eff, grads, stream
     "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, chunk, mode, accum, log_t_eff,
+    # log_t_raw, n_done, stream
+    "gsdf_blend_probe_fwd": (_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, chunk, accum, log_t_eff,
+    # log_t_raw, n_done, stream
+    "gsdf_blend_probe_fwd_pair2": (_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, chunk, n_done, log_t_raw,
+    # ct_accum, ct_log_t_eff, grads, stream
+    "gsdf_blend_probe_bwd": (_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # table, lanes, g0, lr, MP, out, stream
+    "gsdf_expand_gather": (_P, _L, _P, _P, _L, _P, _P),
 }
 
 _lib = None

@@ -12,8 +12,10 @@ from torch_port_helpers import FOV, POSE, scene_arrays, torch_args
 
 from gsdf_slam_tpu_torch import kernels
 from gsdf_slam_tpu_torch.ops import (
-    CameraMatrices, RasterizeConfig, binning, blend, preprocess, render, tile_blend,
+    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, preprocess, render, tile_blend,
 )
+from gsdf_slam_tpu_torch.probes import checks, expand_probe
+from gsdf_slam_tpu_torch.probes.scene import WALL_SIZE, wall_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -96,8 +98,73 @@ def test_render_gradients_match_cpu(dev):
         grads = torch.autograd.grad(loss, params)
         outs[str(d)] = (out.image.detach().cpu(), [x.cpu() for x in grads], dict(kernels.LAUNCHES))
     (img_c, g_c, n_c), (img_g, g_g, n_g) = outs["cpu"], outs[str(dev)]
-    assert n_c == {"tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0}
-    assert n_g == {"tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1, "blend_fwd_export": 0}
+    assert n_c == dict.fromkeys(kernels.LAUNCHES, 0)
+    assert n_g == {**dict.fromkeys(kernels.LAUNCHES, 0), "tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1}
     assert float((img_c - img_g).abs().max()) <= 5e-6
     for a, b in zip(g_c, g_g):
         assert float((a - b).abs().max()) / max(float(a.abs().max()), 1e-4) <= 2e-5
+
+
+# ------------------------------------------------------------------ probes
+@pytest.fixture(scope="module", params=["opaque64", "wall32"])
+def probe_binned(dev, request):
+    """K3's binning of the opaque 64x64 scene and of the wall (32x32), where
+    the chunk exit fires."""
+    if request.param == "wall32":
+        args, cam = wall_scene(dev)
+        size = WALL_SIZE
+    else:
+        s = scene_arrays(seed=5, opacity_max=0.99, spread=1.0)
+        args, cam, size = [a.to(dev) for a in torch_args(s)], _camera(dev), 64
+    g = size // 16
+    with torch.no_grad():
+        pre = preprocess(*args, cam, width=size, height=size, sh_degree=3)
+        b = binning.bin_and_pack(pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d,
+                                 pre.conics, args[3], pre.colors, grid_w=g, grid_h=g)
+    return b, g
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+@pytest.mark.parametrize("mode", blend_probe.FWD_MODES)
+def test_probe_fwd_matches_plain(probe_binned, mode, chunk):
+    b, g = probe_binned
+    got = blend_probe.blend_probe_fwd(b.ranges, b.payload, g, g, mode, chunk)
+    want = blend_probe.blend_probe_fwd_plain(b.ranges, b.payload, g, g, mode, chunk)
+    torch.cuda.synchronize()
+    errs, failed = checks.fwd_check(mode, got, want, b.payload, b.ranges, checks.FWD_SMALL)
+    assert not failed, errs
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_probe_pair2_matches_plain_and_chunk_exit(probe_binned, chunk):
+    b, g = probe_binned
+    got = blend_probe.blend_probe_fwd_pair2(b.ranges, b.payload, g, g, chunk)
+    want = blend_probe.blend_probe_fwd_pair2_plain(b.ranges, b.payload, g, g, chunk)
+    single = blend_probe.blend_probe_fwd(b.ranges, b.payload, g, g, "chunk_exit", chunk)
+    torch.cuda.synchronize()
+    errs, failed = checks.pair2_check(got, want, single, b.payload, b.ranges, checks.FWD_SMALL)
+    assert not failed, errs
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_probe_bwd_matches_plain(probe_binned, chunk):
+    b, g = probe_binned
+    _, _, raw, nd = blend_probe.blend_probe_fwd_plain(b.ranges, b.payload, g, g, "chunk_exit", chunk)
+    gen = torch.Generator(device=raw.device).manual_seed(0)
+    ct_a = torch.randn(raw.shape + (3,), generator=gen, device=raw.device)
+    ct_t = torch.randn(raw.shape, generator=gen, device=raw.device)
+    a = (b.ranges, b.payload, nd, raw, ct_a, ct_t, g, g, chunk)
+    got = blend_probe.blend_probe_bwd(*a)
+    want = blend_probe.blend_probe_bwd_plain(*a)
+    again = blend_probe.blend_probe_bwd(*a)
+    torch.cuda.synchronize()
+    errs, failed = checks.bwd_check(got, again, want, checks.BWD_SMALL)
+    assert not failed, errs
+
+
+def test_expand_gather_bit_equal(dev):
+    table, rank, g0, lr = (torch.from_numpy(a).to(dev) for a in expand_probe.build(4096, 1500)[:4])
+    got = blend_probe.expand_gather(table, g0, lr)
+    torch.cuda.synchronize()
+    want = table[:, rank.to(torch.int64)]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from gsdf_slam_tpu_torch import kernels
-from gsdf_slam_tpu_torch.ops import binning, tile_blend
+from gsdf_slam_tpu_torch.ops import binning, blend_probe, tile_blend
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -67,7 +67,10 @@ def no_kernel_library(monkeypatch, tmp_path):
     kernels.reset_launch_counts()
 
 
-@pytest.mark.parametrize("wrapper", ["tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export"])
+@pytest.mark.parametrize("wrapper", [
+    "tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export",
+    "blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather",
+])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
         raise AssertionError("fell back to the plain version")
@@ -75,6 +78,9 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
     monkeypatch.setattr(binning, "tile_ranges_pack_plain", plain_called)
     monkeypatch.setattr(tile_blend, "blend_fwd_plain", plain_called)
     monkeypatch.setattr(tile_blend, "blend_bwd_plain", plain_called)
+    for name in ("blend_probe_fwd_plain", "blend_probe_fwd_pair2_plain", "blend_probe_bwd_plain",
+                 "expand_gather_plain"):
+        monkeypatch.setattr(blend_probe, name, plain_called)
     z = lambda *s, dt=torch.float32: _claims_cuda(torch.zeros(s, dtype=dt))
     calls = {
         "tile_ranges_pack": lambda: binning.tile_ranges_pack(
@@ -84,6 +90,15 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
         "blend_bwd": lambda: tile_blend.blend_bwd(
             z(16, 2, dt=torch.int32), z(9, 4), z(4, dt=torch.int32), z(16, 256),
             z(16, 256, dt=torch.int32), z(16, 256, 3), z(16, 256), 3, 4, 4),
+        "blend_probe_fwd": lambda: blend_probe.blend_probe_fwd(
+            z(16, 2, dt=torch.int32), z(9, 4), 4, 4, "chunk_exit", 16),
+        "blend_probe_fwd_pair2": lambda: blend_probe.blend_probe_fwd_pair2(
+            z(16, 2, dt=torch.int32), z(9, 4), 4, 4, 16),
+        "blend_probe_bwd": lambda: blend_probe.blend_probe_bwd(
+            z(16, 2, dt=torch.int32), z(9, 4), z(16, dt=torch.int32), z(16, 256), z(16, 256, 3),
+            z(16, 256), 4, 4, 16),
+        "expand_gather": lambda: blend_probe.expand_gather(
+            z(16, 1024), z(1, dt=torch.int32), z(512, dt=torch.int32)),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         calls[wrapper]()
