@@ -31,9 +31,20 @@ Phases, each printing its own lines:
    chunk exit fires) at chunks of 128 and 16, and on the headline; then the
    probe path through its entry points, `probes.kernel_probe.main` and
    `probes.expand_probe.main`, with the launch counts taken over exactly
-   that run; then each probe kernel's time beside its plain version's.
+   that run; then each probe kernel's time beside its plain version's;
+7. pair table: each kernel of ops/pair_table.py (realign_copy,
+   window_gather_rows, window_gather_cols, xpose_cumsum) bit-equal to its
+   plain version on benchmarks/microbench.py's inputs at a tiny size, at
+   the microbench's default (P 262,144, MP 393,216) and at the headline
+   (P 400,000, MP 1,048,576); then the microbench through its entry point,
+   `probes.microbench.main`, with the launch counts taken over exactly that
+   run; then each kernel's time at the headline.
 
-The next-to-last line is a JSON object with one entry per kernel; the last
+Each kernel is timed replayed from a CUDA graph (the device's time) beside
+its bound (the least time the card could take, from the bytes it must move
+and the operations it must do on this run's inputs), its plain version and,
+where one PyTorch call computes the same function, that call. The
+next-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}, printed only when every phase passed.
 The script exits non-zero, printing no result, without a CUDA device or
 when the package is not beside it (the script copied out of the repo).
@@ -100,13 +111,43 @@ KERNELS = {
         source="gsdf_slam_tpu_torch/csrc/expand_gather.cu",
         replaces="benchmarks/expand_probe.py:102",
     ),
+    # phase 7, the pair table: each replaces a microbench pallas_call
+    "realign_copy": dict(
+        source="gsdf_slam_tpu_torch/csrc/pair_table.cu",
+        replaces="benchmarks/microbench.py:282",
+    ),
+    "window_gather_rows": dict(
+        source="gsdf_slam_tpu_torch/csrc/pair_table.cu",
+        replaces="benchmarks/microbench.py:345",
+    ),
+    "window_gather_cols": dict(
+        source="gsdf_slam_tpu_torch/csrc/pair_table.cu",
+        replaces="benchmarks/microbench.py:399",
+    ),
+    "xpose_cumsum": dict(
+        source="gsdf_slam_tpu_torch/csrc/pair_table.cu",
+        replaces="benchmarks/microbench.py:804",
+    ),
 }
 PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
+PAIR_TABLE = ("realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum")
 # chunk sizes of the probe checks on the small scenes: at 16 pairs a tile
 # spans several chunks, so multi-chunk walks and the lock step are exercised
 PROBE_CHUNKS = (128, 16)
 # the expansion probe's larger target, ~1M pair lanes as at the headline
 EXPAND_MP = 1_048_576
+# (P, MP) of the pair-table checks: tiny, the microbench's default, and the
+# headline's Gaussians at its pair capacity
+PAIR_TABLE_SIZES = {"tiny": (2048, 8192), "default": (262_144, 393_216), "headline": (400_000, EXPAND_MP)}
+# Operations per pixel-pair in the bounds of the blend kernels, each special
+# function counted as one float32 operation (the card evaluates them at a
+# lower rate), so the bound is a lower bound. Forward, over each pixel's
+# pairs up to its last applied one: the two offsets, the nine of the
+# exponent, its exp, the opacity product, the clamp and the live test.
+FWD_OPS = 15
+# Backward, over the same pixel-pairs: the forward's 15, the log1p and exp
+# of T, and the 40 of dL/dalpha and the nine per-pair gradients.
+BWD_OPS = 57
 # RasterizeConfig's default cache_prune_margin, the mapper's setting
 MARGIN = 10.0
 # the cadence after densify_until_iter (engine/settings.py:97): one export
@@ -602,6 +643,69 @@ def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
     return dict(fwd=fwd_err, pair2=pair_err, bwd=e["max_abs"], exits=exits), failed
 
 
+def pair_table_cases(torch, p, mp, device):
+    """Each pair-table kernel on benchmarks/microbench.py's inputs at (p,
+    mp): its wrapper, its plain version, the one PyTorch call that computes
+    the same function (never called by the port), the bytes it must move
+    and its shapes."""
+    from gsdf_slam_tpu_torch.ops import pair_table as pt
+    from gsdf_slam_tpu_torch.probes import microbench
+
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    cases = {}
+    tbl_np, src_np, mpa = microbench.realign_inputs(mp)
+    tbl, src = dev(tbl_np), dev(src_np)
+    lanes = src_np.shape[1]
+    # the source lane of each output lane; a lane no group covers, or whose
+    # source lies past src, reads the zero column `lanes` of src_pad
+    lane_src = np.full(mpa, lanes, np.int64)
+    for s0, d0, n in tbl_np.T.astype(np.int64):
+        s = s0 + np.arange(n * pt.CHUNK)
+        lane_src[d0:d0 + len(s)] = np.where(s < lanes, s, lanes)[: mpa - d0]
+    src_pad, lane_idx = torch.cat([src, torch.zeros((16, 1), device=device)], 1), dev(lane_src)
+    copied = int((lane_src < lanes).sum())
+    cases["realign_copy"] = dict(
+        kern=lambda: pt.realign_copy(tbl, src, mpa), plain=lambda: pt.realign_copy_plain(tbl, src, mpa),
+        library=lambda: src_pad.index_select(1, lane_idx),
+        bytes=64 * copied + tbl_np.nbytes + 64 * mpa, shapes=f"{len(tbl_np.T)} groups, mpa {mpa}")
+    for name, win, cpc in (("window_gather_rows", pt.WIN_ROWS, pt.CPC_ROWS),
+                           ("window_gather_cols", pt.WIN_COLS, pt.CPC_COLS)):
+        ws_np, table_np, ranks_np = microbench.window_inputs(p, mp, win, cpc)
+        local = ranks_np - np.repeat(ws_np, cpc)
+        touched = len(np.unique(ranks_np[(local >= 0) & (local < win)]))
+        ws, table, ranks = dev(ws_np), dev(table_np), dev(ranks_np)
+        r64 = ranks.to(torch.int64)
+        kern, plain = getattr(pt, name), getattr(pt, f"{name}_plain")
+        library = ((lambda t=table.t(), r=r64: t[r]) if name == "window_gather_rows"
+                   else (lambda t=table, r=r64: t[:, r]))
+        cases[name] = dict(
+            kern=lambda k=kern, a=(ws, table, ranks): k(*a), plain=lambda k=plain, a=(ws, table, ranks): k(*a),
+            library=library, bytes=64 * touched + 4 * mp + ws_np.nbytes + 64 * mp,
+            shapes=f"p {p}, mp {mp}, window {win}, chunk {cpc}")
+    x = dev(microbench.xpose_inputs(mp))
+    cases["xpose_cumsum"] = dict(
+        kern=lambda: pt.xpose_cumsum(x), plain=lambda: pt.xpose_cumsum_plain(x),
+        library=lambda: torch.cumsum(x, 0, dtype=torch.int32),  # leaves out the transpose
+        bytes=2 * 64 * mp, shapes=f"mp {mp}")
+    return cases
+
+
+def check_pair_table(torch, tag, cases):
+    """Each pair-table kernel bit-equal to its plain version; returns the
+    failed checks."""
+    from gsdf_slam_tpu_torch.probes import checks
+
+    failed = []
+    for name, c in cases.items():
+        got, want = c["kern"](), c["plain"]()
+        torch.cuda.synchronize()
+        same = checks.bit_equal(got, want)
+        log(f"[pair table {tag}] {name} ({c['shapes']}): bit-equal to its plain version={same}")
+        if not same:
+            failed.append(f"pair-table-{name}@{tag}")
+    return failed
+
+
 def main() -> int:
     import torch
 
@@ -623,8 +727,8 @@ def main() -> int:
     from gsdf_slam_tpu_torch.engine import train_step
     from gsdf_slam_tpu_torch.models import AdamState
     from gsdf_slam_tpu_torch.ops import RasterizeConfig, binning, blend, blend_probe, tile_blend
-    from gsdf_slam_tpu_torch.probes import checks, expand_probe, kernel_probe
-    from gsdf_slam_tpu_torch.probes.timing import cuda_ms, require_cuda
+    from gsdf_slam_tpu_torch.probes import checks, expand_probe, kernel_probe, microbench
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms, cuda_ms, graph_ms, require_cuda
     from gsdf_slam_tpu_torch.probes.scene import (
         HEIGHT, WALL_SIZE, WIDTH, headline_camera, headline_scene, wall_scene,
     )
@@ -741,6 +845,21 @@ def main() -> int:
     ct_a, ct_t = cotangents(torch, st, acc, lte)
     a2 = (ranges, payload, gid, lte, nc, ct_a, ct_t, st["p"], st["gw"], st["gh"])
     pairs_live = payload.shape[1]
+    # bytes each kernel must move (inputs read once, outputs written once)
+    # and the pixel-pairs its work runs over, on this run's inputs
+    pix = num_tiles * 256
+    nc_sum = int(nc.sum())
+    log(f"[bound] headline: {pairs_live} pairs, {num_tiles} tiles, {nc_sum} pixel-pairs up to each "
+        f"pixel's last applied pair (sum of n_contrib)")
+    fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix  # ranges, payload; accum, log_t_eff, n_contrib
+    bounds = {
+        "tile_ranges_pack": bound_ms(20 * pairs_live + st["table"].numel() * 4  # keys, order, pair_gid, table
+                                     + 8 * num_tiles + 40 * pairs_live),  # ranges, gid, payload
+        "blend_fwd": bound_ms(fwd_bytes, FWD_OPS * nc_sum),
+        # ranges, payload, gid, log_t_eff, n_contrib, both cotangents; grads [P, 9]
+        "blend_bwd": bound_ms(8 * num_tiles + 40 * pairs_live + 24 * pix + 36 * st["p"], BWD_OPS * nc_sum),
+        "blend_fwd_export": bound_ms(fwd_bytes + pairs_live, FWD_OPS * nc_sum),  # + keep [M] bytes
+    }
     timings = {
         "tile_ranges_pack": (lambda: binning.tile_ranges_pack(*a3),
                              lambda: binning.tile_ranges_pack_plain(*a3)),
@@ -754,20 +873,28 @@ def main() -> int:
     launches = {**launches, "blend_fwd_export": cad_launches.get("blend_fwd_export", 0)}
     entries = []
 
-    def time_entry(name, kern, plain, shapes, count, err):
-        # in turns: plain, kernel, kernel, plain
+    def time_entry(name, kern, plain, shapes, count, err, bound, library=None):
+        # in turns: plain, kernel, library, kernel, library, plain; the kernel
+        # and the library call replayed from a CUDA graph of 20 calls (the
+        # device's time), the plain version on CUDA events
         p0 = cuda_ms(plain, 3)
-        k0 = cuda_ms(kern, 20)
-        k1 = cuda_ms(kern, 20)
+        k0 = graph_ms(kern)
+        l0 = graph_ms(library) if library else None
+        k1 = graph_ms(kern)
+        l1 = graph_ms(library) if library else None
         p1 = cuda_ms(plain, 3)
         ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
-        log(f"[time] {name}: kernel {ms:.4f} ms (runs {k0:.4f}, {k1:.4f}), plain {plain_ms:.4f} ms "
-            f"(runs {p0:.4f}, {p1:.4f}) at {shapes} on {smi}")
-        entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=count,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        lib_ms = (l0 + l1) / 2 if library else None
+        lib = f"library {lib_ms:.4f} ms (runs {l0:.4f}, {l1:.4f})" if library else "no library call"
+        log(f"[time] {name}: kernel {ms:.4f} ms graph (runs {k0:.4f}, {k1:.4f}), bound {bound[0]:.4f} ms "
+            f"({bound[1]}; {bound[0] / ms:.3f} of it), {lib}, plain {plain_ms:.4f} ms (runs {p0:.4f}, "
+            f"{p1:.4f}) at {shapes} on {smi}")
+        entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=count, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
 
     for name, (kern, plain) in timings.items():
-        time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles", launches[name], head_err[name])
+        time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles", launches[name], head_err[name],
+                   bounds[name])
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;
@@ -800,28 +927,63 @@ def main() -> int:
 
     gw, gh = st["gw"], st["gh"]
     _, _, raw, nd = blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit")
+    nd2 = blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh)[3]
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    # pixel-pairs of the chunks each tile walks (every pixel walks them all)
+    walked = {k: 256 * int(torch.minimum(v.to(torch.int64) * 128, counts).sum()) for k, v in
+              (("fwd", nd), ("pair2", nd2))}
+    log(f"[bound] probes at chunk 128: {walked['fwd']} pixel-pairs walked by chunk_exit, {walked['pair2']} "
+        f"by pair2")
+    # ranges, payload; accum, log_t_eff, log_t_raw, n_done
+    probe_fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix + 4 * num_tiles
     ct_pa, ct_pt = kernel_probe.cotangents(num_tiles, device)
     pb = (ranges, payload, nd, raw, ct_pa, ct_pt, gw, gh)
     mp = EXPAND_MP
     p = max(mp // 3, 1000) // 128 * 128
     table, rank, g0, lr = (torch.from_numpy(a).to(device) for a in expand_probe.build(mp, p)[:4])
-    exp_err = float((blend_probe.expand_gather(table, g0, lr) - table[:, rank.to(torch.int64)]).abs().max())
+    rank64 = rank.to(torch.int64)
+    exp_err = float((blend_probe.expand_gather(table, g0, lr) - table[:, rank64]).abs().max())
+    # table lanes the rank touches, lr and g0; out [16, mp]
+    exp_bytes = 64 * int(torch.unique(rank).numel()) + 4 * mp + 4 * g0.numel() + 64 * mp
     probe_timings = {
         "blend_probe_fwd": (lambda: blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit"),
                             lambda: blend_probe.blend_probe_fwd_plain(ranges, payload, gw, gh, "chunk_exit"),
-                            probe_err["fwd"]),
+                            probe_err["fwd"], bound_ms(probe_fwd_bytes, FWD_OPS * walked["fwd"])),
         "blend_probe_fwd_pair2": (lambda: blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh),
                                   lambda: blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, gw, gh),
-                                  probe_err["pair2"]),
+                                  probe_err["pair2"], bound_ms(probe_fwd_bytes, FWD_OPS * walked["pair2"])),
+        # ranges, payload, n_done, log_t_raw, both cotangents; grads [9, M]
         "blend_probe_bwd": (lambda: blend_probe.blend_probe_bwd(*pb),
-                            lambda: blend_probe.blend_probe_bwd_plain(*pb), probe_err["bwd"]),
+                            lambda: blend_probe.blend_probe_bwd_plain(*pb), probe_err["bwd"],
+                            bound_ms(12 * num_tiles + 72 * pairs_live + 20 * pix, BWD_OPS * walked["fwd"])),
     }
-    for name, (kern, plain, err) in probe_timings.items():
+    for name, (kern, plain, err, bound) in probe_timings.items():
         time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles, chunk 128",
-                   probe_launches[name], err)
+                   probe_launches[name], err, bound)
     time_entry("expand_gather", lambda: blend_probe.expand_gather(table, g0, lr),
                lambda: blend_probe.expand_gather_plain(table, g0, lr), f"mp {mp}, p {p}",
-               probe_launches["expand_gather"], exp_err)
+               probe_launches["expand_gather"], exp_err, bound_ms(exp_bytes), lambda: table[:, rank64])
+    del table, rank, rank64, g0, lr
+
+    # ---- 7. pair table: each kernel bit-equal to its plain version at three
+    # sizes; then the microbench through its entry point, with the launch
+    # counts taken over exactly that run; then each kernel's time
+    for tag, (p, mp) in PAIR_TABLE_SIZES.items():
+        failed += check_pair_table(torch, tag, pair_table_cases(torch, p, mp, device))
+    kernels.reset_launch_counts()
+    bench = microbench.main([])
+    bench_launches = dict(kernels.LAUNCHES)
+    log(f"[microbench] launches over the microbench: {bench_launches}")
+    for name in PAIR_TABLE:
+        if bench_launches[name] == 0:
+            failed.append(f"microbench:{name}-not-launched")
+    if not all(r.get("bit_equal", True) for r in bench.values()):
+        failed.append("microbench:kernel-not-bit-equal")
+    p, mp = PAIR_TABLE_SIZES["headline"]
+    for name, c in pair_table_cases(torch, p, mp, device).items():
+        # bit-equal at these inputs above, so the error is 0
+        time_entry(name, c["kern"], c["plain"], c["shapes"], bench_launches[name], 0.0, bound_ms(c["bytes"]),
+                   c["library"])
 
     torch.cuda.synchronize()
     if failed:

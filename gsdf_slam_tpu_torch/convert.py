@@ -22,7 +22,7 @@ from .ops.tile_blend import BinningCache
 _STATS = ("max_radii2d", "xyz_grad_accum", "denom", "exist_since_iter")
 
 
-def from_jax_state(arrays: dict[str, np.ndarray], count: int, device="cpu") -> GaussianModel:
+def from_jax_state(arrays: dict[str, np.ndarray], count: int, device="cuda") -> GaussianModel:
     """GaussianModel from JAX GaussianState fields (the six parameters and,
     where given, the densification statistics)."""
     count = int(count)
@@ -38,7 +38,7 @@ def from_jax_state(arrays: dict[str, np.ndarray], count: int, device="cpu") -> G
 
 
 def from_jax_adam(
-    m: dict[str, np.ndarray], v: dict[str, np.ndarray], step: int, count: int, device="cpu"
+    m: dict[str, np.ndarray], v: dict[str, np.ndarray], step: int, count: int, device="cuda"
 ) -> AdamState:
     """AdamState from JAX AdamState fields (m and v per group, the shared step)."""
     count = int(count)
@@ -57,7 +57,7 @@ def to_numpy_state(model: GaussianModel) -> dict[str, np.ndarray]:
     return out
 
 
-def from_jax_pairs(ranges: np.ndarray, pairs: np.ndarray, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def from_jax_pairs(ranges: np.ndarray, pairs: np.ndarray, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """The port's binning from a JAX `SortedPairs` built with `group=1`:
     `ranges` [2, NT] (chunk-aligned start and count of each tile) and
     `pairs` [16, MPA] (rows 0-8 the blend payload). Returns ranges [T, 2]
@@ -74,7 +74,7 @@ def from_jax_pairs(ranges: np.ndarray, pairs: np.ndarray, device="cpu") -> tuple
 
 def from_jax_cache(
     arrays: dict[str, np.ndarray], count: int, image_size: tuple[int, int], group: int = 8,
-    device="cpu",
+    device="cuda",
 ) -> BinningCache:
     """The port's BinningCache from a JAX one (`ranges` [2, NG] group starts
     and counts, `gid` [MPA], `slot` [MPA], `total_pairs`), built for `count`

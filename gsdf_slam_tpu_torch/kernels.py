@@ -27,8 +27,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # K1 blend_fwd and K4 blend_fwd_export share blend_fwd.cu; the three blend
-# probes share blend_probe.cu
-SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu", "blend_probe.cu", "expand_gather.cu")
+# probes share blend_probe.cu; the four pair-table kernels pair_table.cu
+SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu", "blend_probe.cu", "expand_gather.cu",
+           "pair_table.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -39,6 +40,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0,
     "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
+    "realign_copy": 0, "window_gather_rows": 0, "window_gather_cols": 0, "xpose_cumsum": 0,
 }
 
 _P = ctypes.c_void_p
@@ -66,6 +68,13 @@ _SIGNATURES = {
     "gsdf_blend_probe_bwd": (_P, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     # table, lanes, g0, lr, MP, out, stream
     "gsdf_expand_gather": (_P, _L, _P, _P, _L, _P, _P),
+    # tbl, ng, src, lanes, mpa, out, stream
+    "gsdf_realign_copy": (_P, _I, _P, _L, _L, _P, _P),
+    # ws, table, lanes, ranks, MP, win, cpc, out, stream
+    "gsdf_window_gather_rows": (_P, _P, _L, _P, _L, _I, _I, _P, _P),
+    "gsdf_window_gather_cols": (_P, _P, _L, _P, _L, _I, _I, _P, _P),
+    # x, MP, totals, out, stream
+    "gsdf_xpose_cumsum": (_P, _L, _P, _P, _P),
 }
 
 _lib = None

@@ -65,7 +65,7 @@ class GaussianModel(nn.Module):
         colors: np.ndarray,
         valid: np.ndarray | None = None,
         n_rest: int = 15,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "GaussianModel":
         """createFromPcd (:130-199) from the first colourised cloud; no
         voxel dedup (the reference discards its result)."""

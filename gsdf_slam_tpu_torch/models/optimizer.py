@@ -69,7 +69,7 @@ def expon_lr(
     lr_delay_steps: int = 0,
     lr_delay_mult: float = 1.0,
     max_steps: int = 30_000,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """Log-lerp lr schedule (gaussian_model.cpp:1025-1037), in float32 as
     the JAX version evaluates it."""
@@ -91,7 +91,7 @@ def expon_lr(
     return torch.where(step_t < 0, 0.0, delay * log_lerp)
 
 
-def group_lrs(opt, spatial_lr_scale: float, iteration: float, device="cpu") -> dict[str, torch.Tensor]:
+def group_lrs(opt, spatial_lr_scale: float, iteration: float, device="cuda") -> dict[str, torch.Tensor]:
     """Current lr per group (trainingSetup :319-352 + updateLearningRate)."""
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     return {

@@ -114,7 +114,7 @@ class CameraMatrices:
     tanfovy: torch.Tensor
 
     @staticmethod
-    def from_arrays(view, full_proj, campos, tanfovx, tanfovy, device="cpu"):
+    def from_arrays(view, full_proj, campos, tanfovx, tanfovy, device="cuda"):
         f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
         return CameraMatrices(
             view=f(view),
@@ -132,7 +132,7 @@ class CameraMatrices:
         fovy: float,
         znear: float = 0.01,
         zfar: float = 100.0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "CameraMatrices":
         w2c = world_to_view(q, t)
         full = (projection_matrix(znear, zfar, fovx, fovy) @ w2c).astype(np.float32)

@@ -17,7 +17,9 @@ Bars, with their reasons:
   |mean x| (the sum's own size where no term cancels): float32 sums of up
   to 128 terms in another order. accum and log_t_raw are exactly 0;
 - gradients within BWD_SMALL scaled per field (the gradient bar of
-  tests/test_pallas_blend.py); two launches of the backward bit-equal.
+  tests/test_pallas_blend.py); two launches of the backward bit-equal;
+- the kernels that copy 32-bit words or add integers (`expand_gather` and
+  the pair-table kernels) bit-equal.
 
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
@@ -39,6 +41,11 @@ FLOOR_RTOL = 1e-5
 FLIP_LOG_T = 1e-3
 MAX_FLIPS = 80
 FIELDS = {"means2d": slice(0, 2), "conics": slice(2, 5), "opacity": slice(5, 6), "colors": slice(6, 9)}
+
+
+def bit_equal(got, want) -> bool:
+    """Same shape and the same 32-bit words (NaN bits included)."""
+    return got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _floor_rel_err(got_teff, want_teff, payload, ranges) -> float:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.blend_probe import EXPAND_CELL, EXPAND_WIN, expand_gather
+from .checks import bit_equal
 from .timing import cuda_ms, graph_ms, require_cuda
 
 DEFAULT_TARGETS = (180_224, 1_048_576)
@@ -81,13 +82,13 @@ def main(argv=None) -> dict:
         got = expand_gather(table, g0, lr)
         want = table[:, rank64]
         torch.cuda.synchronize()
-        bit_equal = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        same = bit_equal(got, want)
         runs = {
             "gather": lambda: tbl_rm[rank64].t().contiguous(),
             "plain": lambda: table[:, rank64],
             "kernel": lambda: expand_gather(table, g0, lr),
         }
-        res = dict(p=p, bit_equal=bit_equal)
+        res = dict(p=p, bit_equal=same)
         for key, fn in runs.items():
             res[f"{key}_ms"] = cuda_ms(fn)
             res[f"{key}_graph_ms"] = graph_ms(fn)
@@ -97,7 +98,7 @@ def main(argv=None) -> dict:
                            ("plain", "table[:, rank] (plain version)"),
                            ("kernel", "expand_gather kernel")):
             print(f"{label:40s} {res[key + '_ms']:10.4f} {res[key + '_graph_ms']:10.4f}", flush=True)
-        print(f"  expand_gather bit-equal to table[:, rank]: {bit_equal}", flush=True)
+        print(f"  expand_gather bit-equal to table[:, rank]: {same}", flush=True)
         results[mp] = res
     return results
 

@@ -8,6 +8,21 @@ import subprocess
 import torch
 
 ITERS = 20
+# NVIDIA H100 SXM, published dense peaks at the full 700 W limit (NVIDIA's
+# data sheet): device memory bytes/s and float32 operations/s outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound_ms(bytes_moved: float, ops: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take for work that moves
+    `bytes_moved` bytes (each input read once, each output written once)
+    and does `ops` float32 operations: (ms, "bytes" or "operations"),
+    whichever bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def require_cuda() -> str:

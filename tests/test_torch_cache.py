@@ -107,7 +107,7 @@ def saturating():
     scene = _saturating_scene()
     jexp = jax.jit(lambda s: j_render(*s, JCFG32, export_binning_cache=True))(scene)
     params = [_t(a) for a in scene[:6]]
-    cam = CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), np.pi / 2, np.pi / 2)
+    cam = CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), np.pi / 2, np.pi / 2, device="cpu")
     return dict(jexp=jexp, params=params, cam=cam, bg=_t(scene[8]), n=scene[0].shape[0])
 
 
@@ -118,7 +118,7 @@ def test_export_render_and_pruned_cache_match_jax(saturating):
     np.testing.assert_allclose(out.image.numpy(), np.asarray(jexp.image), atol=5e-6)
     np.testing.assert_allclose(out.final_t.numpy(), np.asarray(jexp.final_t), atol=5e-6)
     cache = out.binning_cache
-    want = from_jax_cache(_jax_cache_arrays(jexp.binning_cache), s["n"], (32, 32))
+    want = from_jax_cache(_jax_cache_arrays(jexp.binning_cache), s["n"], (32, 32), device="cpu")
     assert _pairs(cache) == _pairs(want)
     assert cache.total_pairs == want.total_pairs == int(out.total_pairs)
     unpruned = render(*s["params"], s["cam"], s["bg"], RasterizeConfig(32, 32, cache_prune_margin=0.0),
@@ -150,7 +150,7 @@ def exported():
         *jax_args(s), jax_camera(), jnp.asarray(s["bg"]))
     n = int(s["alive"].sum())
     return dict(s=s, n=n, jcache=jexp.binning_cache,
-                cache=from_jax_cache(_jax_cache_arrays(jexp.binning_cache), n, (64, 64)))
+                cache=from_jax_cache(_jax_cache_arrays(jexp.binning_cache), n, (64, 64), device="cpu"))
 
 
 def _moved(s, case):
@@ -197,7 +197,7 @@ def cadence():
     gt = np.random.default_rng(2).uniform(0, 1, (64, 64, 3)).astype(np.float32)
     jstate = _jax_state(s)
 
-    model = from_jax_state({k: np.asarray(v) for k, v in jstate.params().items()}, n)
+    model = from_jax_state({k: np.asarray(v) for k, v in jstate.params().items()}, n, device="cpu")
     adam = AdamState.init(model.params())
     port = {"loss": []}
     cache = None

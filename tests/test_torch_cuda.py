@@ -12,9 +12,9 @@ from torch_port_helpers import FOV, POSE, scene_arrays, torch_args
 
 from gsdf_slam_tpu_torch import kernels
 from gsdf_slam_tpu_torch.ops import (
-    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, preprocess, render, tile_blend,
+    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, render, tile_blend,
 )
-from gsdf_slam_tpu_torch.probes import checks, expand_probe
+from gsdf_slam_tpu_torch.probes import checks, expand_probe, microbench
 from gsdf_slam_tpu_torch.probes.scene import WALL_SIZE, wall_scene
 
 pytestmark = pytest.mark.cuda
@@ -166,5 +166,51 @@ def test_expand_gather_bit_equal(dev):
     table, rank, g0, lr = (torch.from_numpy(a).to(dev) for a in expand_probe.build(4096, 1500)[:4])
     got = blend_probe.expand_gather(table, g0, lr)
     torch.cuda.synchronize()
-    want = table[:, rank.to(torch.int64)]
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert checks.bit_equal(got, table[:, rank.to(torch.int64)])
+
+
+# ------------------------------------------------------------- pair table
+@pytest.mark.parametrize("mp", [8192, 393_216])
+def test_realign_copy_bit_equal(dev, mp):
+    tbl, src, mpa = microbench.realign_inputs(mp)
+    tbl, src = torch.from_numpy(tbl).to(dev), torch.from_numpy(src).to(dev)
+    got = pair_table.realign_copy(tbl, src, mpa)
+    torch.cuda.synchronize()
+    assert checks.bit_equal(got, pair_table.realign_copy_plain(tbl, src, mpa))
+
+
+def test_realign_copy_ragged(dev):
+    """The last group's last chunk runs past the end of src (read as 0), the
+    output ends inside a 128-lane chunk, an empty group shares the next
+    group's dst0, and a group starts past mpa."""
+    src = torch.randn((16, 1000), generator=torch.Generator().manual_seed(0)).to(dev)
+    tbl = torch.tensor([[5, 300, 300, 900, 10], [0, 256, 256, 512, 1024], [2, 0, 2, 2, 1]],
+                       dtype=torch.int32, device=dev)
+    for mpa in (900, 1024, 1100):
+        got = pair_table.realign_copy(tbl, src, mpa)
+        want = pair_table.realign_copy_plain(tbl, src, mpa)
+        torch.cuda.synchronize()
+        assert checks.bit_equal(got, want), mpa
+    assert want[:, 512:612].all() and not want[:, 612:1024].any() and want[:, 1024:].all()
+
+
+@pytest.mark.parametrize("kind", ["rows", "cols"])
+@pytest.mark.parametrize("p, mp", [(2048, 8192), (262_144, 393_216)])
+def test_window_gather_bit_equal(dev, kind, p, mp):
+    win, cpc = (pair_table.WIN_ROWS, pair_table.CPC_ROWS) if kind == "rows" else (pair_table.WIN_COLS,
+                                                                                   pair_table.CPC_COLS)
+    args = [torch.from_numpy(a).to(dev) for a in microbench.window_inputs(p, mp, win, cpc)]
+    args[2][::997] += 5000  # some lanes out of their window
+    kern = getattr(pair_table, f"window_gather_{kind}")
+    plain = getattr(pair_table, f"window_gather_{kind}_plain")
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert checks.bit_equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("mp", [4 * 512, 5 * 512 + 77, 393_216])
+def test_xpose_cumsum_bit_equal(dev, mp):
+    x = torch.from_numpy(microbench.xpose_inputs(mp)).to(dev)
+    got = pair_table.xpose_cumsum(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pair_table.xpose_cumsum_plain(x))

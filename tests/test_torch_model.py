@@ -48,12 +48,12 @@ def test_adam_matches_jax_over_steps():
 @pytest.mark.parametrize("iteration", [0, 1, 777, 29_999, 40_000])
 def test_group_lrs_match(iteration):
     want = j_group_lrs(JOpt(), 2.5, jnp.int32(iteration))
-    got = group_lrs(OptimizationParams(), 2.5, iteration)
+    got = group_lrs(OptimizationParams(), 2.5, iteration, device="cpu")
     for k in PARAM_GROUPS:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6)
     d = dict(lr_delay_steps=100, lr_delay_mult=0.01, max_steps=1000)
     np.testing.assert_allclose(
-        float(expon_lr(iteration % 1000, 1e-3, 1e-5, **d)),
+        float(expon_lr(iteration % 1000, 1e-3, 1e-5, **d, device="cpu")),
         float(j_expon_lr(jnp.float32(iteration % 1000), 1e-3, 1e-5, **d)), rtol=1e-6,
     )
 
@@ -66,7 +66,7 @@ def test_add_densification_stats_matches():
     pts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     js = j_create(jnp.asarray(pts), jnp.asarray(cols), jnp.ones(n, bool), n)
-    model = GaussianModel.create_from_pcd(pts, cols)
+    model = GaussianModel.create_from_pcd(pts, cols, device="cpu")
     for _ in range(2):
         js = j_stats(js, jnp.asarray(grad), jnp.asarray(radii), 64, 48)
         model.add_densification_stats(torch.from_numpy(grad), torch.from_numpy(radii), 64, 48)
@@ -84,7 +84,7 @@ def test_create_from_pcd_matches():
     valid = np.ones(30, bool)
     valid[7] = False
     js = j_create(jnp.asarray(pts), jnp.asarray(cols), jnp.asarray(valid), 64)
-    model = GaussianModel.create_from_pcd(pts, cols, valid)
+    model = GaussianModel.create_from_pcd(pts, cols, valid, device="cpu")
     assert model.count == int(js.count) == 29
     for k, p in model.params().items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(getattr(js, k))[:29], atol=1e-6)
@@ -99,7 +99,7 @@ def test_from_jax_state_round_trip():
     js = js.replace(denom=js.denom.at[:20].set(3.0), max_radii2d=js.max_radii2d.at[4].set(7.0))
     fields = {k: np.asarray(getattr(js, k)) for k in PARAM_GROUPS + ("denom", "max_radii2d",
                                                                       "xyz_grad_accum", "exist_since_iter")}
-    model = from_jax_state(fields, int(js.count))
+    model = from_jax_state(fields, int(js.count), device="cpu")
     back = to_numpy_state(model)
     assert model.count == 20
     for k, v in back.items():
@@ -107,7 +107,7 @@ def test_from_jax_state_round_trip():
     ja = JAdam.init(js.params())
     m = {k: np.asarray(v) + 1.0 for k, v in ja.m.items()}
     v = {k: np.asarray(x) + 2.0 for k, x in ja.v.items()}
-    adam = from_jax_adam(m, v, 4, 20)
+    adam = from_jax_adam(m, v, 4, 20, device="cpu")
     assert adam.step == 4
     for k in PARAM_GROUPS:
         np.testing.assert_array_equal(adam.m[k].numpy(), m[k][:20])

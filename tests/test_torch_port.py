@@ -1,16 +1,21 @@
-"""The port stands alone: it imports no jax, and a CUDA tensor never falls
-back to a plain version."""
+"""The port stands alone: it imports no jax, a CUDA tensor never falls
+back to a plain version, and its entry points run on the card unless told
+otherwise."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from gsdf_slam_tpu_torch import kernels
-from gsdf_slam_tpu_torch.ops import binning, blend_probe, tile_blend
+from gsdf_slam_tpu_torch import convert, kernels
+from gsdf_slam_tpu_torch.config import OptimizationParams
+from gsdf_slam_tpu_torch.models import GaussianModel
+from gsdf_slam_tpu_torch.models.optimizer import expon_lr, group_lrs
+from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, tile_blend
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -70,6 +75,7 @@ def no_kernel_library(monkeypatch, tmp_path):
 @pytest.mark.parametrize("wrapper", [
     "tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export",
     "blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather",
+    "realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum",
 ])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
@@ -81,6 +87,9 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
     for name in ("blend_probe_fwd_plain", "blend_probe_fwd_pair2_plain", "blend_probe_bwd_plain",
                  "expand_gather_plain"):
         monkeypatch.setattr(blend_probe, name, plain_called)
+    for name in ("realign_copy_plain", "window_gather_rows_plain", "window_gather_cols_plain",
+                 "xpose_cumsum_plain"):
+        monkeypatch.setattr(pair_table, name, plain_called)
     z = lambda *s, dt=torch.float32: _claims_cuda(torch.zeros(s, dtype=dt))
     calls = {
         "tile_ranges_pack": lambda: binning.tile_ranges_pack(
@@ -99,10 +108,44 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
             z(16, 256), 4, 4, 16),
         "expand_gather": lambda: blend_probe.expand_gather(
             z(16, 1024), z(1, dt=torch.int32), z(512, dt=torch.int32)),
+        "realign_copy": lambda: pair_table.realign_copy(z(3, 2, dt=torch.int32), z(16, 300), 384),
+        "window_gather_rows": lambda: pair_table.window_gather_rows(
+            z(1, dt=torch.int32), z(16, 2200), z(1024, dt=torch.int32)),
+        "window_gather_cols": lambda: pair_table.window_gather_cols(
+            z(1, dt=torch.int32), z(16, 2200), z(2048, dt=torch.int32)),
+        "xpose_cumsum": lambda: pair_table.xpose_cumsum(z(1024, 16, dt=torch.int32)),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         calls[wrapper]()
     assert kernels.LAUNCHES[wrapper] == 0
+
+
+_PCD = np.random.default_rng(0).uniform(-1, 1, (20, 3)).astype(np.float32)
+_POSE = (np.array([1.0, 0, 0, 0]), np.zeros(3), 1.0, 1.0)
+# each entry point called without a device
+_DEFAULT_DEVICE_CALLS = {
+    "create_from_pcd": lambda: GaussianModel.create_from_pcd(_PCD, _PCD).xyz,
+    "from_pose": lambda: CameraMatrices.from_pose(*_POSE).view,
+    "from_arrays": lambda: CameraMatrices.from_arrays(np.eye(4), np.eye(4), np.zeros(3), 1.0, 1.0).view,
+    "from_jax_state": lambda: convert.from_jax_state(
+        {k: np.zeros((2,) + s, np.float32) for k, s in (("xyz", (3,)), ("f_dc", (1, 3)), ("f_rest", (15, 3)),
+                                                        ("opacity", (1,)), ("scaling", (3,)), ("rotation", (4,)))},
+        2).xyz,
+    "from_jax_pairs": lambda: convert.from_jax_pairs(np.zeros((2, 1), np.int32), np.zeros((16, 128), np.float32))[1],
+    "expon_lr": lambda: expon_lr(10, 1e-3, 1e-5),
+    "group_lrs": lambda: group_lrs(OptimizationParams(), 1.0, 10)["f_dc"],
+}
+
+
+@pytest.mark.parametrize("entry", list(_DEFAULT_DEVICE_CALLS))
+def test_entry_points_default_to_the_card(entry):
+    """Without a device argument an entry point allocates on CUDA: on a
+    machine without a card it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        assert _DEFAULT_DEVICE_CALLS[entry]().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            _DEFAULT_DEVICE_CALLS[entry]()
 
 
 def test_other_devices_raise():

@@ -41,7 +41,7 @@ def test_transforms_match():
         transforms.inverse_sigmoid(torch.from_numpy(x)).numpy(), np.asarray(jtr.inverse_sigmoid(x)), atol=tol
     )
     jc = jtr.CameraMatrices.from_pose(q[0], np.array([0.1, -0.2, 0.3]), 1.1, 0.8)
-    tc = transforms.CameraMatrices.from_pose(q[0], np.array([0.1, -0.2, 0.3]), 1.1, 0.8)
+    tc = transforms.CameraMatrices.from_pose(q[0], np.array([0.1, -0.2, 0.3]), 1.1, 0.8, device="cpu")
     for f in ("view", "full_proj", "campos", "tanfovx", "tanfovy"):
         np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)))
     v = rng.uniform(-1, 1, 11).astype(np.float32)
@@ -135,7 +135,7 @@ def test_forward_golden_through_port_render():
     from gsdf_slam_tpu_torch.ops import CameraMatrices, RasterizeConfig, render
 
     g = np.load(Path(__file__).parent / "fixtures" / "forward_golden.npz")
-    cam = CameraMatrices.from_arrays(g["view"], g["full_proj"], g["campos"], g["tanfovx"], g["tanfovy"])
+    cam = CameraMatrices.from_arrays(g["view"], g["full_proj"], g["campos"], g["tanfovx"], g["tanfovy"], device="cpu")
     t = lambda k: torch.from_numpy(np.asarray(g[k], np.float32))
     out = render(t("xyz"), t("scales"), t("quats"), t("opac"), t("dc"), t("sh_rest"), cam, t("bg"),
                  RasterizeConfig(height=64, width=64))

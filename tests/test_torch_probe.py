@@ -82,7 +82,7 @@ def _binned(scene, chunk):
     sp = sort_expand_pack(pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d,
                           pre.conics, args[3], pre.colors, grid_w=gw, grid_h=gh, max_pairs=4096,
                           chunk=chunk, group=1)
-    ranges, payload = from_jax_pairs(np.asarray(sp.ranges), np.asarray(sp.pairs))
+    ranges, payload = from_jax_pairs(np.asarray(sp.ranges), np.asarray(sp.pairs), device="cpu")
     return dict(jr=sp.ranges, jp=sp.pairs, gw=gw, gh=gh, nt=gw * gh, ranges=ranges, payload=payload)
 
 

@@ -64,7 +64,7 @@ def runs():
     jstate = _jax_state(s)
     fields = {k: np.asarray(v) for k, v in jstate.params().items()}
 
-    model = from_jax_state(fields, n)
+    model = from_jax_state(fields, n, device="cpu")
     adam = AdamState.init(model.params())
     cam = torch_camera()
     port = {"loss": [], "m1": None}

@@ -47,7 +47,7 @@ def jax_camera():
 def torch_camera():
     from gsdf_slam_tpu_torch.ops import CameraMatrices
 
-    return CameraMatrices.from_pose(q=POSE[0], t=POSE[1], fovx=FOV, fovy=FOV)
+    return CameraMatrices.from_pose(q=POSE[0], t=POSE[1], fovx=FOV, fovy=FOV, device="cpu")
 
 
 def live(s, key):
