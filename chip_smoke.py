@@ -9,10 +9,14 @@ Phases, each printing its own lines:
 2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/;
 3. kernel checks: each kernel (K3 tile_ranges_pack, K1 blend_fwd, K2
    blend_bwd, K4 blend_fwd_export) against its plain PyTorch version on the
-   card, on the small test scene (64x64) and on the headline scene
-   (1200x680, 400k Gaussians): K4 bit-equal to K1 and its keep flags
-   against the plain ones; the cached blend through K4's pruned cache
-   against the fresh blend at export parameters; then three fresh training
+   card, on the small test scene (64x64), the opaque wall (32x32) and the
+   headline scene (1200x680, 400k Gaussians): K1's and K4's bucket
+   checkpoints against the plain ones where K2 reads them, K4 bit-equal to
+   K1 and its keep flags against the plain ones; the cached blend through
+   K4's pruned cache against the fresh blend at export parameters; that K1
+   writes exactly the checkpoint words K2 reads; K2's live buckets, the
+   checkpoint words and buffer, and K2's atomics per step, counted from
+   the inputs; then three fresh training
    steps, and the cadence of one export and seven cached steps, on the card
    against the same steps on the CPU;
 4. main path, fresh binning: `train_step` at the headline size, 3 warm-up
@@ -41,8 +45,9 @@ Phases, each printing its own lines:
    run; then each kernel's time at the headline.
 
 Each kernel is timed replayed from a CUDA graph (the device's time) beside
-its bound (the least time the card could take, from the bytes it must move
-and the operations it must do on this run's inputs), its plain version and,
+its bound (the least time the card could take, from the bytes it must move,
+the float32 operations and, for the blend kernels, the special functions it
+must do on this run's inputs), its plain version and,
 where one PyTorch call computes the same function, that call. The
 next-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}, printed only when every phase passed.
@@ -64,7 +69,9 @@ WARMUP, TIMED = 3, 10
 
 # Bounds, each with its reason (PERF.md "Kernel checks").
 # K3 moves integers and copies floats: bit-equal.
-# K1 small: the images bar of tests/test_pallas_blend.py.
+# K1 small: the images bar of tests/test_pallas_blend.py. The checkpoints of
+# K1 and K4 take K1's bars: a checkpoint is the accum and final T of the
+# render cut at its bucket's start.
 K1_SMALL = 5e-6
 # K1 headline: the kernel sums log T sequentially, the plain version by
 # chunks, so a pair whose inclusive T lies within rounding of 1e-4 may apply
@@ -139,14 +146,18 @@ EXPAND_MP = 1_048_576
 # (P, MP) of the pair-table checks: tiny, the microbench's default, and the
 # headline's Gaussians at its pair capacity
 PAIR_TABLE_SIZES = {"tiny": (2048, 8192), "default": (262_144, 393_216), "headline": (400_000, EXPAND_MP)}
-# Operations per pixel-pair in the bounds of the blend kernels, each special
-# function counted as one float32 operation (the card evaluates them at a
-# lower rate), so the bound is a lower bound. Forward, over each pixel's
-# pairs up to its last applied one: the two offsets, the nine of the
-# exponent, its exp, the opacity product, the clamp and the live test.
+# Operations per pixel-pair in the float32 term of the blend kernels' bounds,
+# each special function counted as one float32 operation, so the term is a
+# lower bound; the blend kernels' special functions also have a term of
+# their own, on the SFUs' rate (phase 5). Forward: on each pixel-pair up to
+# the pixel's last applied pair, the two offsets, the nine of the exponent
+# and the live test (FWD_WALK_OPS); on each live one also its exp, the
+# opacity product and the clamp (FWD_OPS in all).
+FWD_WALK_OPS = 12
 FWD_OPS = 15
-# Backward, over the same pixel-pairs: the forward's 15, the log1p and exp
-# of T, and the 40 of dL/dalpha and the nine per-pair gradients.
+# Backward: the forward's, then on each applied pixel-pair the log1p and exp
+# of T and the 40 of dL/dalpha and the nine per-pair gradients (BWD_OPS in
+# all).
 BWD_OPS = 57
 # RasterizeConfig's default cache_prune_margin, the mapper's setting
 MARGIN = 10.0
@@ -221,10 +232,14 @@ def cotangents(torch, st, accum, log_t_eff, rng_seed=1):
 
 
 def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
-    """Each kernel against its plain version on the same inputs; K4 against
-    K1; the cached blend through K4's pruned cache against the fresh blend
-    at export parameters."""
+    """Each kernel against its plain version on the same inputs, K1's and
+    K4's bucket checkpoints included; K4 against K1; the cached blend
+    through K4's pruned cache against the fresh blend at export parameters.
+    Returns the max errors, the failed checks and what the inputs make the
+    blend kernels do (ops/blend.py::blend_bwd_plain's counts and the
+    checkpoint words and buffer)."""
     from gsdf_slam_tpu_torch.ops import binning, blend, tile_blend
+    from gsdf_slam_tpu_torch.probes import checks
 
     num_tiles = st["gw"] * st["gh"]
     args3 = (st["keys"], st["order"], st["pair_gid"], st["table"], num_tiles)
@@ -236,10 +251,10 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
     log(f"[check {name}] pairs={p_k.shape[1]} (pre-cull {st['total']}) "
         f"K3 ranges/gid/payload bit-equal={k3_ok} max_abs_err={k3_err:.3g}")
 
-    acc_k, lte_k, nc_k = tile_blend.blend_fwd(r_k, p_k, st["gw"], st["gh"])
-    # the plain version with a margin is also K4's: its first three outputs
+    acc_k, lte_k, nc_k, ck_k = tile_blend.blend_fwd(r_k, p_k, st["gw"], st["gh"])
+    # the plain version with a margin is also K4's: its first four outputs
     # are the plain K1's
-    acc_p, lte_p, nc_p, keep_p = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"], keep_margin=MARGIN)
+    acc_p, lte_p, nc_p, ck_p, keep_p = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"], keep_margin=MARGIN)
     torch.cuda.synchronize()
 
     def fwd_err(acc, lte):
@@ -254,17 +269,25 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
     log(f"[check {name}] K1 accum max_abs_err={acc_err:.3g} final_T max_abs_err={t_err:.3g} "
         f"log_t_eff max_abs_err={lte_err:.3g} pixels>{K1_SMALL:g}={over} "
         f"n_contrib mismatches={nc_diff} bound={k1_bound:g}")
+    ck1_c, ck1_t, _, compared = checks.checkpoint_check(ck_k, ck_p, r_k, nc_k, nc_p)
+    log(f"[check {name}] K1 checkpoints against the plain version's on the {compared} words K2 reads after both: "
+        f"colour sums max_abs_err={ck1_c:.3g} T max_abs_err={ck1_t:.3g} bound={k1_bound:g} (K1's: a "
+        f"checkpoint is the accum and final T of the render cut at the bucket's start)")
 
-    acc_4, lte_4, nc_4, keep_k = tile_blend.blend_fwd_export(r_k, p_k, st["gw"], st["gh"], MARGIN)
+    acc_4, lte_4, nc_4, ck_4, keep_k = tile_blend.blend_fwd_export(r_k, p_k, st["gw"], st["gh"], MARGIN)
     torch.cuda.synchronize()
-    k4_bit_equal = torch.equal(acc_4, acc_k) and torch.equal(lte_4, lte_k) and torch.equal(nc_4, nc_k)
-    k4_err = fwd_err(acc_4, lte_4)
+    ck4_c, ck4_t, _, _ = checks.checkpoint_check(ck_4, ck_p, r_k, nc_4, nc_p)
+    ck4_same = checks.checkpoint_check(ck_4, ck_k, r_k, nc_4, nc_k)[2]
+    k4_bit_equal = (torch.equal(acc_4, acc_k) and torch.equal(lte_4, lte_k) and torch.equal(nc_4, nc_k)
+                    and ck4_same)
+    k4_err = max(fwd_err(acc_4, lte_4), ck4_c, ck4_t)
     keep_mismatch = int((keep_k != keep_p).sum())
     kept = int(keep_k.sum())
     pruned_share = 1.0 - kept / max(p_k.shape[1], 1)
-    log(f"[check {name}] K4 accum/log_t_eff/n_contrib bit-equal to K1={k4_bit_equal}; "
-        f"max_abs_err to the plain version {k4_err:.3g}; keep mismatches against the plain "
-        f"version={keep_mismatch} of {p_k.shape[1]} pairs; kept {kept}, pruned share "
+    log(f"[check {name}] K4 accum/log_t_eff/n_contrib/checkpoints bit-equal to K1={k4_bit_equal} "
+        f"(checkpoints alone {ck4_same}); checkpoints against the plain version's colour "
+        f"{ck4_c:.3g} T {ck4_t:.3g}; max_abs_err to the plain version {k4_err:.3g}; keep mismatches "
+        f"against the plain version={keep_mismatch} of {p_k.shape[1]} pairs; kept {kept}, pruned share "
         f"{pruned_share:.6f} (1 - kept / post-cull pairs, margin {MARGIN:g})")
     margin_ok = True
     if headline:
@@ -280,22 +303,22 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
         num_gaussians=st["p"], image_size=(st["height"], st["width"]),
     )
     payload_c = st["table"].index_select(0, cache.gid).t().contiguous()
-    acc_c, lte_c, nc_c = tile_blend.blend_fwd(cache.ranges, payload_c, st["gw"], st["gh"])
+    acc_c, lte_c, nc_c, ck_c = tile_blend.blend_fwd(cache.ranges, payload_c, st["gw"], st["gh"])
     torch.cuda.synchronize()
     cached_fwd_err = max(float((acc_c - acc_k).abs().max()),
                          float((torch.exp(lte_c) - torch.exp(lte_k)).abs().max()))
 
     ct_a, ct_t = cotangents(torch, st, acc_p, lte_p)
-    bargs = (r_k, p_k, g_k, lte_p, nc_p, ct_a, ct_t, st["p"], st["gw"], st["gh"])
+    bargs = (r_k, p_k, g_k, acc_p, nc_p, ck_p, ct_a, ct_t, st["p"], st["gw"], st["gh"])
     g_kern = tile_blend.blend_bwd(*bargs)
     g_plain = blend.blend_bwd_plain(*bargs)
     # dL/dalpha = T (c . ct_accum) - (suffix + ct_eff) / (1 - alpha): the
     # plain gradients with either cotangent zeroed show how far a K2 that
     # lost that term would land, which must be beyond the bound
-    g_no_eff = blend.blend_bwd_plain(*bargs[:6], torch.zeros_like(ct_t), *bargs[7:])
-    g_no_col = blend.blend_bwd_plain(*bargs[:5], torch.zeros_like(ct_a), *bargs[6:])
-    g_fresh = tile_blend.blend_bwd(r_k, p_k, g_k, lte_k, nc_k, ct_a, ct_t, st["p"], st["gw"], st["gh"])
-    g_cached = tile_blend.blend_bwd(cache.ranges, payload_c, cache.gid, lte_c, nc_c, ct_a, ct_t,
+    g_no_eff = blend.blend_bwd_plain(*bargs[:7], torch.zeros_like(ct_t), *bargs[8:])
+    g_no_col = blend.blend_bwd_plain(*bargs[:6], torch.zeros_like(ct_a), *bargs[7:])
+    g_fresh = tile_blend.blend_bwd(r_k, p_k, g_k, acc_k, nc_k, ck_k, ct_a, ct_t, st["p"], st["gw"], st["gh"])
+    g_cached = tile_blend.blend_bwd(cache.ranges, payload_c, cache.gid, acc_c, nc_c, ck_c, ct_a, ct_t,
                                     st["p"], st["gw"], st["gh"])
     torch.cuda.synchronize()
 
@@ -324,12 +347,27 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
     log(f"[check {name}] cached blend through the pruned cache ({cache.gid.shape[0]} pairs) against "
         f"the fresh blend at export parameters: K1 max_abs_err={cached_fwd_err:.3g} (bound {k1_bound:g}), "
         f"K2 scaled errors {' '.join(f'{k}={v:.3g}' for k, v in cached_errs.items())} (bound {k2_bound:g})")
+    # what K2 does after K1, under K1's own n_contrib (the plain version's
+    # differs from it at a few frontier pixels)
+    words = int(blend.checkpoints_read(r_k, nc_k)[1].sum())
+    counts = blend.bucket_counts(r_k, p_k, nc_k, st["gw"])
+    written = checks.checkpoint_words_written(r_k, p_k, st["gw"], ck_k.shape)
+    counts.update(words=words, written=written, slots=ck_k.shape[0], buffer_bytes=ck_k.numel() * 4)
+    log(f"[buckets {name}] live buckets (32b < the tile's largest n_contrib) {counts['live_buckets']} of "
+        f"{int(((r_k[:, 1] - r_k[:, 0] + 31) // 32).sum())}; checkpoint words K1 writes {written}, K2 reads "
+        f"(32b < n_contrib) {words}, {16 * words} bytes; checkpoint buffer {ck_k.shape[0]} rows x 256 pixels x "
+        f"16 bytes = {ck_k.numel() * 4} bytes; K2 atomics per step {9 * counts['taken']} (9 for each of the "
+        f"{counts['taken']} pairs some pixel applied); applied pixel-pairs {counts['applied']}")
 
     failed = []
     if not k3_ok:
         failed.append("K3")
     if not k1_err <= k1_bound:
         failed.append("K1")
+    if not (ck1_c <= k1_bound and ck1_t <= k1_bound):
+        failed.append("K1-checkpoints")
+    if written != words:
+        failed.append("K1-checkpoint-words-written-not-read")
     if not k2_err <= k2_bound:
         failed.append("K2")
     if not eff_weight > k2_bound:
@@ -338,6 +376,8 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
         failed.append("K2-bound-blind-to-colour-term")
     if not k4_bit_equal:
         failed.append("K4-not-bit-equal-to-K1")
+    if not (ck4_c <= k1_bound and ck4_t <= k1_bound):
+        failed.append("K4-checkpoints")
     if not headline and keep_mismatch != 0:
         failed.append("K4-keep")
     if headline and not pruned_share > 0.0:
@@ -348,7 +388,9 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
         failed.append("cached-K1")
     if not cached_bwd_err <= k2_bound:
         failed.append("cached-K2")
-    return dict(tile_ranges_pack=k3_err, blend_fwd=k1_err, blend_bwd=k2_abs, blend_fwd_export=k4_err), failed
+    errs = dict(tile_ranges_pack=k3_err, blend_fwd=max(k1_err, ck1_c, ck1_t), blend_bwd=k2_abs,
+                blend_fwd_export=k4_err)
+    return errs, failed, counts
 
 
 def check_small_training(torch, device, cadence=False):
@@ -618,8 +660,8 @@ def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
     g_k = blend_probe.blend_probe_bwd(*bargs)
     g_again = blend_probe.blend_probe_bwd(*bargs)
     g_p, applied = blend_probe.blend_probe_bwd_plain(*bargs, with_applied=True)
-    _, lte, nc = blend.blend_fwd_plain(ranges, payload, gw, gh)
-    k2 = tile_blend.blend_bwd(ranges, payload, gid, lte, nc, ct_a, ct_t, st["p"], gw, gh)
+    acc, _, nc, ckpt = blend.blend_fwd_plain(ranges, payload, gw, gh)
+    k2 = tile_blend.blend_bwd(ranges, payload, gid, acc, nc, ckpt, ct_a, ct_t, st["p"], gw, gh)
     folded = torch.zeros_like(k2).index_add_(0, gid.to(torch.int64), g_k.t())
     torch.cuda.synchronize()
     e, f = checks.bwd_check(g_k, g_again, g_p, bwd_bound)
@@ -728,7 +770,7 @@ def main() -> int:
     from gsdf_slam_tpu_torch.models import AdamState
     from gsdf_slam_tpu_torch.ops import RasterizeConfig, binning, blend, blend_probe, tile_blend
     from gsdf_slam_tpu_torch.probes import checks, expand_probe, kernel_probe, microbench
-    from gsdf_slam_tpu_torch.probes.timing import bound_ms, cuda_ms, graph_ms, require_cuda
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms, cuda_ms, graph_ms, require_cuda, sfu_per_s
     from gsdf_slam_tpu_torch.probes.scene import (
         HEIGHT, WALL_SIZE, WIDTH, headline_camera, headline_scene, wall_scene,
     )
@@ -758,8 +800,12 @@ def main() -> int:
     # ---- 3. kernel checks
     args, cam = small_scene(torch, device)
     st_small = stage_inputs(torch, args, cam, 64, 64)
-    _, f = check_kernels(torch, "64x64", st_small, K1_SMALL, K2_SMALL)
+    _, f, _ = check_kernels(torch, "64x64", st_small, K1_SMALL, K2_SMALL)
     failed += [f"{k}@64x64" for k in f]
+    wargs, wcam = wall_scene(device)
+    st_wall = stage_inputs(torch, wargs, wcam, WALL_SIZE, WALL_SIZE)
+    _, f, _ = check_kernels(torch, f"wall {WALL_SIZE}x{WALL_SIZE}", st_wall, K1_SMALL, K2_SMALL)
+    failed += [f"{k}@wall" for k in f]
 
     t0 = time.perf_counter()
     model = headline_scene(device)
@@ -768,8 +814,8 @@ def main() -> int:
     hargs = (model.xyz.detach(), model.scaling_act().detach(), model.rotation_act().detach(),
              model.opacity_act()[:, 0].detach(), model.f_dc.detach(), model.f_rest.detach())
     st_head = stage_inputs(torch, hargs, cam_h, WIDTH, HEIGHT)
-    head_err, f = check_kernels(torch, f"{WIDTH}x{HEIGHT}", st_head, K1_HEADLINE, K2_HEADLINE,
-                                headline=True)
+    head_err, f, head_counts = check_kernels(torch, f"{WIDTH}x{HEIGHT}", st_head, K1_HEADLINE, K2_HEADLINE,
+                                             headline=True)
     failed += [f"{k}@headline" for k in f]
     torch.cuda.synchronize()
 
@@ -841,24 +887,44 @@ def main() -> int:
     num_tiles = st["gw"] * st["gh"]
     a3 = (st["keys"], st["order"], st["pair_gid"], st["table"], num_tiles)
     ranges, gid, payload = binning.tile_ranges_pack(*a3)
-    acc, lte, nc = tile_blend.blend_fwd(ranges, payload, st["gw"], st["gh"])
+    acc, lte, nc, ckpt = tile_blend.blend_fwd(ranges, payload, st["gw"], st["gh"])
     ct_a, ct_t = cotangents(torch, st, acc, lte)
-    a2 = (ranges, payload, gid, lte, nc, ct_a, ct_t, st["p"], st["gw"], st["gh"])
+    a2 = (ranges, payload, gid, acc, nc, ckpt, ct_a, ct_t, st["p"], st["gw"], st["gh"])
     pairs_live = payload.shape[1]
-    # bytes each kernel must move (inputs read once, outputs written once)
-    # and the pixel-pairs its work runs over, on this run's inputs
+    # bytes each kernel must move (inputs read once, outputs written once),
+    # the pixel-pairs its work runs over and its special functions, on this
+    # run's inputs
     pix = num_tiles * 256
     nc_sum = int(nc.sum())
+    counts = head_counts
+    n_buckets = (nc.amax(1).to(torch.int64) + 31) // 32
+    # the pairs of the live buckets, the only ones K2 reads
+    pairs_k2 = int(torch.minimum((ranges[:, 1] - ranges[:, 0]).to(torch.int64), 32 * n_buckets).sum())
+    sfu_rate = sfu_per_s()
     log(f"[bound] headline: {pairs_live} pairs, {num_tiles} tiles, {nc_sum} pixel-pairs up to each "
-        f"pixel's last applied pair (sum of n_contrib)")
-    fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix  # ranges, payload; accum, log_t_eff, n_contrib
+        f"pixel's last applied pair (sum of n_contrib), {counts['applied']} of them applied; {pairs_k2} pairs "
+        f"in K2's {counts['live_buckets']} live buckets; {counts['words']} checkpoint words K2 reads; special "
+        f"functions at {sfu_rate:.4g}/s (16 a clock on each of 132 SMs at nvidia-smi's clocks.max.sm)")
+    # ranges, payload; accum, log_t_eff, n_contrib, the checkpoints K2 reads
+    fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix + 16 * counts["words"]
+    # Work on this run's inputs, the least the functions need: the exponent
+    # and live test on each pixel-pair up to n_contrib; the rest only on the
+    # live ones, which up to n_contrib are exactly the applied ones (a pixel
+    # applies every live pair before its last). Special functions: expf of
+    # the exponent and of log T on each applied pixel-pair, and K2's
+    # reciprocal of 1 - alpha (log1pf, which need not use the SFU, is not
+    # counted).
+    applied = counts["applied"]
+    fwd_ops = FWD_WALK_OPS * nc_sum + (FWD_OPS - FWD_WALK_OPS) * applied
     bounds = {
         "tile_ranges_pack": bound_ms(20 * pairs_live + st["table"].numel() * 4  # keys, order, pair_gid, table
                                      + 8 * num_tiles + 40 * pairs_live),  # ranges, gid, payload
-        "blend_fwd": bound_ms(fwd_bytes, FWD_OPS * nc_sum),
-        # ranges, payload, gid, log_t_eff, n_contrib, both cotangents; grads [P, 9]
-        "blend_bwd": bound_ms(8 * num_tiles + 40 * pairs_live + 24 * pix + 36 * st["p"], BWD_OPS * nc_sum),
-        "blend_fwd_export": bound_ms(fwd_bytes + pairs_live, FWD_OPS * nc_sum),  # + keep [M] bytes
+        "blend_fwd": bound_ms(fwd_bytes, fwd_ops, 2 * applied, sfu_rate),
+        # ranges, the live buckets' payload and gid, accum, n_contrib, both
+        # cotangents, the checkpoints it reads; grads [P, 9]
+        "blend_bwd": bound_ms(8 * num_tiles + 40 * pairs_k2 + 32 * pix + 16 * counts["words"] + 36 * st["p"],
+                              FWD_WALK_OPS * nc_sum + (BWD_OPS - FWD_WALK_OPS) * applied, 3 * applied, sfu_rate),
+        "blend_fwd_export": bound_ms(fwd_bytes + pairs_live, fwd_ops, 2 * applied, sfu_rate),  # + keep
     }
     timings = {
         "tile_ranges_pack": (lambda: binning.tile_ranges_pack(*a3),
@@ -887,7 +953,7 @@ def main() -> int:
         lib_ms = (l0 + l1) / 2 if library else None
         lib = f"library {lib_ms:.4f} ms (runs {l0:.4f}, {l1:.4f})" if library else "no library call"
         log(f"[time] {name}: kernel {ms:.4f} ms graph (runs {k0:.4f}, {k1:.4f}), bound {bound[0]:.4f} ms "
-            f"({bound[1]}; {bound[0] / ms:.3f} of it), {lib}, plain {plain_ms:.4f} ms (runs {p0:.4f}, "
+            f"({bound[2]}; {bound[0] / ms:.3f} of it), {lib}, plain {plain_ms:.4f} ms (runs {p0:.4f}, "
             f"{p1:.4f}) at {shapes} on {smi}")
         entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=count, max_abs_err=err,
                             ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
@@ -900,8 +966,6 @@ def main() -> int:
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;
     # then the probe path through its two entry points, with the launch
     # counts taken over exactly that run; then each probe kernel's time
-    wargs, wcam = wall_scene(device)
-    st_wall = stage_inputs(torch, wargs, wcam, WALL_SIZE, WALL_SIZE)
     for chunk in PROBE_CHUNKS:
         for nm, stp in (("64x64", st_small), (f"wall {WALL_SIZE}x{WALL_SIZE}", st_wall)):
             res, f = check_probes(torch, nm, stp, chunk, checks.FWD_SMALL, checks.BWD_SMALL)

@@ -49,14 +49,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # keys, order, pair_gid, table, M, ranges, gid_out, payload, stream
     "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
-    # ranges, payload, M, num_tiles, grid_w, accum, log_t_eff, n_contrib, stream
-    "gsdf_blend_fwd": (_P, _P, _L, _I, _I, _P, _P, _P, _P),
+    # ranges, payload, M, num_tiles, grid_w, accum, log_t_eff, n_contrib,
+    # ckpt, stream
+    "gsdf_blend_fwd": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     # ranges, payload, M, num_tiles, grid_w, log_exit, accum, log_t_eff,
-    # n_contrib, keep, stream
-    "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P),
-    # ranges, payload, gid, M, num_tiles, grid_w, log_t_eff, n_contrib,
+    # n_contrib, ckpt, keep, stream
+    "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P),
+    # ranges, payload, gid, M, num_tiles, grid_w, accum, n_contrib, ckpt,
     # ct_accum, ct_log_t_eff, grads, stream
-    "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P),
+    "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # ranges, payload, M, num_tiles, grid_w, chunk, mode, accum, log_t_eff,
     # log_t_raw, n_done, stream
     "gsdf_blend_probe_fwd": (_P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P),

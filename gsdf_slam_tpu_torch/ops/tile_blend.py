@@ -7,9 +7,11 @@ Port of `gsdf_slam_tpu/ops/pallas_blend_grouped.py` (`_make_fused_blend`,
 `BinningCache`, `build_pruned_cache`). `FreshBlend`'s forward bins the
 Gaussians (ops/binning.py, kernel K3) and runs K1, or K4 on an export
 step; `CachedBlend`'s forward gathers fresh per-Gaussian payload through a
-frozen `BinningCache` and runs K1, with no binning. Both backwards run K2,
-which also folds the pair gradients into per-Gaussian gradients with
-atomics. Gradients flow to means2d, conics, opacities and colors; the
+frozen `BinningCache` and runs K1, with no binning, on the cache's
+compacted ranges. K1 and K4 also write each pixel's state at every 32nd
+pair of its tile (the bucket checkpoints), which both autograd functions
+save; both backwards run K2 from them, one warp per 32-pair bucket, which
+also folds the pair gradients into per-Gaussian gradients with atomics. Gradients flow to means2d, conics, opacities and colors; the
 binning keys (depths, rects, tiles_touched) are not differentiated, as in
 JAX.
 
@@ -25,13 +27,24 @@ import torch
 
 from .. import kernels
 from .binning import PAYLOAD_ROWS, Binned, bin_and_pack, payload_table
-from .blend import PIX_PER_TILE, blend_bwd_plain, blend_fwd_plain, keep_log_exit
+from .blend import PIX_PER_TILE, blend_bwd_plain, blend_fwd_plain, checkpoint_slots, keep_log_exit
+
+
+def _fwd_outputs(num_tiles: int, m: int, dev):
+    accum = torch.empty((num_tiles, PIX_PER_TILE, 3), dtype=torch.float32, device=dev)
+    log_t_eff = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.int32, device=dev)
+    # sized from shapes alone: no read-back of the pair counts
+    ckpt = torch.empty((checkpoint_slots(num_tiles, m), PIX_PER_TILE, 4), dtype=torch.float32, device=dev)
+    return accum, log_t_eff, n_contrib, ckpt
 
 
 def blend_fwd(ranges, payload, grid_w: int, grid_h: int):
     """K1: forward blend of every tile. Returns accum [T,256,3],
-    log_t_eff [T,256] and n_contrib [T,256] int32 (last applied pair + 1).
-    Replaces `_fwd_kernel` of ops/pallas_blend_grouped.py (keep_margin=None)."""
+    log_t_eff [T,256], n_contrib [T,256] int32 (last applied pair + 1) and
+    the bucket checkpoints [T + M // 32, 256, 4] (ops/blend.py) that K2
+    starts from. Replaces `_fwd_kernel` of ops/pallas_blend_grouped.py
+    (keep_margin=None)."""
     if kernels.runs_plain(ranges):
         return blend_fwd_plain(ranges, payload, grid_w, grid_h)
     kernels.library()  # builds on first use; raises where it cannot
@@ -40,22 +53,21 @@ def blend_fwd(ranges, payload, grid_w: int, grid_h: int):
     m = payload.shape[1]
     kernels.check("ranges", ranges, torch.int32, (num_tiles, 2), dev)
     kernels.check("payload", payload, torch.float32, (PAYLOAD_ROWS, m), dev)
-    accum = torch.empty((num_tiles, PIX_PER_TILE, 3), dtype=torch.float32, device=dev)
-    log_t_eff = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.int32, device=dev)
+    accum, log_t_eff, n_contrib, ckpt = _fwd_outputs(num_tiles, m, dev)
     kernels.LAUNCHES["blend_fwd"] += 1
     kernels.launch(
         "gsdf_blend_fwd", ranges.data_ptr(), payload.data_ptr(), m, num_tiles,
-        grid_w, accum.data_ptr(), log_t_eff.data_ptr(), n_contrib.data_ptr(),
+        grid_w, accum.data_ptr(), log_t_eff.data_ptr(), n_contrib.data_ptr(), ckpt.data_ptr(),
     )
-    return accum, log_t_eff, n_contrib
+    return accum, log_t_eff, n_contrib, ckpt
 
 
 def blend_fwd_export(ranges, payload, grid_w: int, grid_h: int, margin: float):
-    """K4: K1's outputs (bit-equal) plus keep [M] bool, True for a pair
-    that some pixel sees live while its exclusive raw log T is still
-    >= log(1e-4 / margin). Replaces `_fwd_kernel` of
-    ops/pallas_blend_grouped.py launched with keep_margin."""
+    """K4: K1's outputs, checkpoints included (bit-equal where K2 reads
+    them), plus keep [M] bool, True for a pair that some pixel sees live
+    while its exclusive raw log T is still >= log(1e-4 / margin).
+    Replaces `_fwd_kernel` of ops/pallas_blend_grouped.py launched with
+    keep_margin."""
     if kernels.runs_plain(ranges):
         return blend_fwd_plain(ranges, payload, grid_w, grid_h, keep_margin=margin)
     kernels.library()  # builds on first use; raises where it cannot
@@ -64,29 +76,28 @@ def blend_fwd_export(ranges, payload, grid_w: int, grid_h: int, margin: float):
     m = payload.shape[1]
     kernels.check("ranges", ranges, torch.int32, (num_tiles, 2), dev)
     kernels.check("payload", payload, torch.float32, (PAYLOAD_ROWS, m), dev)
-    accum = torch.empty((num_tiles, PIX_PER_TILE, 3), dtype=torch.float32, device=dev)
-    log_t_eff = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((num_tiles, PIX_PER_TILE), dtype=torch.int32, device=dev)
+    accum, log_t_eff, n_contrib, ckpt = _fwd_outputs(num_tiles, m, dev)
     keep = torch.zeros((m,), dtype=torch.bool, device=dev)
     kernels.LAUNCHES["blend_fwd_export"] += 1
     kernels.launch(
         "gsdf_blend_fwd_export", ranges.data_ptr(), payload.data_ptr(), m, num_tiles,
         grid_w, keep_log_exit(margin), accum.data_ptr(), log_t_eff.data_ptr(),
-        n_contrib.data_ptr(), keep.data_ptr(),
+        n_contrib.data_ptr(), ckpt.data_ptr(), keep.data_ptr(),
     )
-    return accum, log_t_eff, n_contrib, keep
+    return accum, log_t_eff, n_contrib, ckpt, keep
 
 
 def blend_bwd(
-    ranges, payload, gid, log_t_eff, n_contrib, ct_accum, ct_log_t_eff,
+    ranges, payload, gid, accum, n_contrib, ckpt, ct_accum, ct_log_t_eff,
     num_gaussians: int, grid_w: int, grid_h: int,
 ):
     """K2: backward blend plus the fold to per-Gaussian gradients [P, 9]
-    (mean x, y; conic a, b, c; opacity; rgb). Replaces `_bwd_kernel` and
-    `_fold_pair_grads` of ops/pallas_blend_grouped.py."""
+    (mean x, y; conic a, b, c; opacity; rgb), from the forward's accum,
+    n_contrib and bucket checkpoints on the same binning. Replaces
+    `_bwd_kernel` and `_fold_pair_grads` of ops/pallas_blend_grouped.py."""
     if kernels.runs_plain(ranges):
         return blend_bwd_plain(
-            ranges, payload, gid, log_t_eff, n_contrib, ct_accum, ct_log_t_eff,
+            ranges, payload, gid, accum, n_contrib, ckpt, ct_accum, ct_log_t_eff,
             num_gaussians, grid_w, grid_h,
         )
     kernels.library()  # builds on first use; raises where it cannot
@@ -96,15 +107,16 @@ def blend_bwd(
     kernels.check("ranges", ranges, torch.int32, (num_tiles, 2), dev)
     kernels.check("payload", payload, torch.float32, (PAYLOAD_ROWS, m), dev)
     kernels.check("gid", gid, torch.int32, (m,), dev)
-    kernels.check("log_t_eff", log_t_eff, torch.float32, (num_tiles, PIX_PER_TILE), dev)
+    kernels.check("accum", accum, torch.float32, (num_tiles, PIX_PER_TILE, 3), dev)
     kernels.check("n_contrib", n_contrib, torch.int32, (num_tiles, PIX_PER_TILE), dev)
+    kernels.check("ckpt", ckpt, torch.float32, (checkpoint_slots(num_tiles, m), PIX_PER_TILE, 4), dev)
     kernels.check("ct_accum", ct_accum, torch.float32, (num_tiles, PIX_PER_TILE, 3), dev)
     kernels.check("ct_log_t_eff", ct_log_t_eff, torch.float32, (num_tiles, PIX_PER_TILE), dev)
     grads = torch.zeros((num_gaussians, 9), dtype=torch.float32, device=dev)
     kernels.LAUNCHES["blend_bwd"] += 1
     kernels.launch(
         "gsdf_blend_bwd", ranges.data_ptr(), payload.data_ptr(), gid.data_ptr(),
-        m, num_tiles, grid_w, log_t_eff.data_ptr(), n_contrib.data_ptr(),
+        m, num_tiles, grid_w, accum.data_ptr(), n_contrib.data_ptr(), ckpt.data_ptr(),
         ct_accum.data_ptr(), ct_log_t_eff.data_ptr(), grads.data_ptr(),
     )
     return grads
@@ -174,12 +186,12 @@ class FreshBlend(torch.autograd.Function):
         )
         keep = None
         if export_margin:
-            accum, log_t_eff, n_contrib, keep = blend_fwd_export(
+            accum, log_t_eff, n_contrib, ckpt, keep = blend_fwd_export(
                 binned.ranges, binned.payload, grid_w, grid_h, export_margin
             )
         else:
-            accum, log_t_eff, n_contrib = blend_fwd(binned.ranges, binned.payload, grid_w, grid_h)
-        ctx.save_for_backward(binned.ranges, binned.payload, binned.gid, log_t_eff, n_contrib)
+            accum, log_t_eff, n_contrib, ckpt = blend_fwd(binned.ranges, binned.payload, grid_w, grid_h)
+        ctx.save_for_backward(binned.ranges, binned.payload, binned.gid, accum, n_contrib, ckpt)
         ctx.grid = (grid_w, grid_h)
         ctx.num_gaussians = means2d.shape[0]
         total = torch.tensor(binned.total_pairs, dtype=torch.int64)
@@ -190,10 +202,10 @@ class FreshBlend(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_accum, ct_log_t_eff, *_ct_rest):
-        ranges, payload, gid, log_t_eff, n_contrib = ctx.saved_tensors
+        ranges, payload, gid, accum, n_contrib, ckpt = ctx.saved_tensors
         grid_w, grid_h = ctx.grid
         g = blend_bwd(
-            ranges, payload, gid, log_t_eff, n_contrib, ct_accum.contiguous(),
+            ranges, payload, gid, accum, n_contrib, ckpt, ct_accum.contiguous(),
             ct_log_t_eff.contiguous(), ctx.num_gaussians, grid_w, grid_h,
         )
         return g[:, 0:2], g[:, 2:5], g[:, 5], g[:, 6:9], None, None, None, None, None, None, None
@@ -243,17 +255,17 @@ class CachedBlend(torch.autograd.Function):
             torch.where(valid, opacities, 0.0), torch.where(ok, colors, 0.0),
         )
         payload = table.index_select(0, gid).t().contiguous()
-        accum, log_t_eff, n_contrib = blend_fwd(ranges, payload, grid_w, grid_h)
-        ctx.save_for_backward(ranges, payload, gid, log_t_eff, n_contrib, valid)
+        accum, log_t_eff, n_contrib, ckpt = blend_fwd(ranges, payload, grid_w, grid_h)
+        ctx.save_for_backward(ranges, payload, gid, accum, n_contrib, ckpt, valid)
         ctx.grid = (grid_w, grid_h)
         return accum, log_t_eff
 
     @staticmethod
     def backward(ctx, ct_accum, ct_log_t_eff):
-        ranges, payload, gid, log_t_eff, n_contrib, valid = ctx.saved_tensors
+        ranges, payload, gid, accum, n_contrib, ckpt, valid = ctx.saved_tensors
         grid_w, grid_h = ctx.grid
         g = blend_bwd(
-            ranges, payload, gid, log_t_eff, n_contrib, ct_accum.contiguous(),
+            ranges, payload, gid, accum, n_contrib, ckpt, ct_accum.contiguous(),
             ct_log_t_eff.contiguous(), valid.shape[0], grid_w, grid_h,
         )
         # the VJP of the sanitising `where`s (:724-742)

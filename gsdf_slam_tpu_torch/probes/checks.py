@@ -1,6 +1,8 @@
-"""The probe kernels against their plain versions: the bars and the
-comparisons, shared by chip_smoke.py and tests/test_torch_cuda.py so that
-each bar is defined once.
+"""The probe kernels, and the bucket checkpoints of K1 and K4, against
+their plain versions: the bars and the comparisons (and the count of
+checkpoint words K1 writes), shared by
+chip_smoke.py and tests/test_torch_cuda.py so that each bar is defined
+once.
 
 Bars, with their reasons:
 
@@ -33,6 +35,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import kernels
+from ..ops.blend import checkpoints_read
 from ..ops.blend_probe import FLOOR_SCALE, pair_n_done
 
 FWD_SMALL = 5e-6
@@ -122,3 +126,32 @@ def bwd_check(got, again, want, bound):
     if not errs["deterministic"]:
         failed.append("bwd-not-deterministic")
     return errs, failed
+
+
+def checkpoint_check(got, want, ranges, nc_got, nc_want):
+    """K1's or K4's bucket checkpoints `got` against `want` (the plain
+    version's, or K1's), on the words that K2 reads under both n_contrib.
+    Returns (largest |d colour sum|, largest |d T| with T = exp(log T),
+    whether those words are bit-equal, words compared). The colour sums and
+    T are K1's accum and final T at a shorter render, so they take K1's
+    bars."""
+    rows, read = checkpoints_read(ranges, torch.minimum(nc_got, nc_want))
+    g, w = got[rows][read], want[rows][read]
+    if not g.numel():
+        return 0.0, 0.0, True, 0
+    return (float((g[:, 1:] - w[:, 1:]).abs().max()), float((g[:, 0].exp() - w[:, 0].exp()).abs().max()),
+            bit_equal(g, w), int(read.sum()))
+
+
+def checkpoint_words_written(ranges, payload, grid_w, shape) -> int:
+    """K1 launched into a NaN-filled checkpoint buffer of `shape`: the words
+    it wrote (a written word holds a finite log T), to hold against the
+    words K2 reads. The launch is made outside the wrapper, so it is not
+    counted."""
+    num_tiles, dev = ranges.shape[0], ranges.device
+    ckpt = torch.full(shape, float("nan"), device=dev)
+    outs = (torch.empty((num_tiles, 256, 3), device=dev), torch.empty((num_tiles, 256), device=dev),
+            torch.empty((num_tiles, 256), dtype=torch.int32, device=dev))
+    kernels.launch("gsdf_blend_fwd", ranges.data_ptr(), payload.data_ptr(), payload.shape[1], num_tiles, grid_w,
+                   *(o.data_ptr() for o in outs), ckpt.data_ptr())
+    return int(torch.isfinite(ckpt[..., 0]).sum())

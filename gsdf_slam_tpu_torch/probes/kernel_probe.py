@@ -134,7 +134,7 @@ def main(argv=None) -> dict:
         timed(name, run)
     if bwd_names:
         ct_a, ct_t = cotangents(num_tiles, dev)
-        k2_args = (ranges, payload, st["gid"], k1[1], k1[2], ct_a, ct_t, st["p"], gw, gh)
+        k2_args = (ranges, payload, st["gid"], k1[0], k1[2], k1[3], ct_a, ct_t, st["p"], gw, gh)
         k2 = tile_blend.blend_bwd(*k2_args)
         timed("bwd", lambda: tile_blend.blend_bwd(*k2_args))
         if want("bwd_opt"):

@@ -13,16 +13,33 @@ ITERS = 20
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# special functions (expf, logf, reciprocal) on the SFUs: 16 results a clock
+# on each of the 132 SMs (the Hopper architecture white paper)
+SFU_PER_CLOCK = 16 * 132
 
 
-def bound_ms(bytes_moved: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, ops: float = 0.0, sfu: float = 0.0,
+             sfu_per_s: float | None = None) -> tuple[float, str, str]:
     """The least time the card could take for work that moves
-    `bytes_moved` bytes (each input read once, each output written once)
-    and does `ops` float32 operations: (ms, "bytes" or "operations"),
-    whichever bounds it."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    `bytes_moved` bytes (each input read once, each output written once),
+    does `ops` float32 operations and `sfu` special functions at
+    `sfu_per_s`: (ms, "bytes" or "operations", the term that binds:
+    "bytes", "float32" or "special functions")."""
+    terms = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3, "float32": ops / FP32_OPS_PER_S * 1e3}
+    if sfu:
+        terms["special functions"] = sfu / sfu_per_s * 1e3
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def sfu_per_s() -> float:
+    """Special functions per second at the card's top SM clock
+    (nvidia-smi's clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return SFU_PER_CLOCK * float(mhz) * 1e6
 
 
 def require_cuda() -> str:

@@ -97,7 +97,7 @@ def test_n_contrib_marks_last_applied_pair():
         pre.depths.detach(), pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d.detach(),
         pre.conics.detach(), args[3], pre.colors.detach(), grid_w=GRID, grid_h=GRID,
     )
-    acc, lte, nc = blend.blend_fwd_plain(b.ranges, b.payload, GRID, GRID)
+    acc, lte, nc, _ = blend.blend_fwd_plain(b.ranges, b.payload, GRID, GRID)
     assert int(nc.max()) > 0 and float(lte.min()) < -5.0  # frontier reached
     # recompute the raw log T per pixel sequentially in float64
     dxl, dyl = blend._pixel_offsets("cpu")

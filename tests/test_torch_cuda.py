@@ -8,7 +8,7 @@ also runs where jax is not installed:
 
 import pytest
 import torch
-from torch_port_helpers import FOV, POSE, scene_arrays, torch_args
+from torch_port_helpers import FOV, POSE, scene_arrays, synthetic_binning, torch_args
 
 from gsdf_slam_tpu_torch import kernels
 from gsdf_slam_tpu_torch.ops import (
@@ -52,37 +52,79 @@ def test_k3_bit_equal(staged):
         assert torch.equal(a, b)
 
 
-def test_k1_k2_match_plain(staged):
-    keys, order, pair_gid, table, p = staged
-    ranges, gid, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
-    acc, lte, nc = tile_blend.blend_fwd(ranges, payload, 4, 4)
-    acc_p, lte_p, nc_p = blend.blend_fwd_plain(ranges, payload, 4, 4)
+def _blend_matches_plain(ranges, payload, gid, p, g):
+    """K1 (with its checkpoints) and K2 against their plain versions on one
+    binning, at the bars of the 64x64 checks (checks.FWD_SMALL for colour
+    and T, checks.BWD_SMALL for gradients scaled per field)."""
+    acc, lte, nc, ckpt = tile_blend.blend_fwd(ranges, payload, g, g)
+    acc_p, lte_p, nc_p, ckpt_p = blend.blend_fwd_plain(ranges, payload, g, g)
     torch.cuda.synchronize()
-    assert float((acc - acc_p).abs().max()) <= 5e-6
-    assert float((lte.exp() - lte_p.exp()).abs().max()) <= 5e-6
+    assert float((acc - acc_p).abs().max()) <= checks.FWD_SMALL
+    assert float((lte.exp() - lte_p.exp()).abs().max()) <= checks.FWD_SMALL
+    assert torch.equal(nc, nc_p)
+    c_err, t_err, _, words = checks.checkpoint_check(ckpt, ckpt_p, ranges, nc, nc_p)
+    assert words > 0 and c_err <= checks.FWD_SMALL and t_err <= checks.FWD_SMALL, (c_err, t_err)
+    # K1 writes exactly the words K2 reads: launched into a NaN-filled buffer
+    assert checks.checkpoint_words_written(ranges, payload, g, ckpt.shape) == words
+    # K4: K1's outputs and checkpoints bit for bit, its keep flags the plain ones
+    acc4, lte4, nc4, ckpt4, keep = tile_blend.blend_fwd_export(ranges, payload, g, g, 10.0)
+    keep_p = blend.blend_fwd_plain(ranges, payload, g, g, keep_margin=10.0)[-1]
+    torch.cuda.synchronize()
+    assert torch.equal(acc4, acc) and torch.equal(lte4, lte) and torch.equal(nc4, nc)
+    assert checks.checkpoint_check(ckpt4, ckpt, ranges, nc4, nc)[2] and torch.equal(keep, keep_p)
     gen = torch.Generator(device=acc.device).manual_seed(0)
     ct_a = torch.randn(acc.shape, generator=gen, device=acc.device)
     ct_t = 0.1 * torch.randn(lte.shape, generator=gen, device=acc.device)
-    a = (ranges, payload, gid, lte_p, nc_p, ct_a, ct_t, p, 4, 4)
-    g = tile_blend.blend_bwd(*a)
-    g_p = blend.blend_bwd_plain(*a)
+    a = (ranges, payload, gid, acc_p, nc_p, ckpt_p, ct_a, ct_t, p, g, g)
+    got = tile_blend.blend_bwd(*a)
+    want = blend.blend_bwd_plain(*a)
     torch.cuda.synchronize()
-    for sl in (slice(0, 2), slice(2, 5), slice(5, 6), slice(6, 9)):
-        scale = max(float(g_p[:, sl].abs().max()), 1e-12)
-        assert float((g[:, sl] - g_p[:, sl]).abs().max()) / scale <= 2e-5
+    errs = checks.scaled_errors(got.t(), want.t())
+    assert all(e <= checks.BWD_SMALL for e in errs.values()), errs
+    # K2 from the kernel's own forward
+    got_k = tile_blend.blend_bwd(ranges, payload, gid, acc, nc, ckpt, ct_a, ct_t, p, g, g)
+    torch.cuda.synchronize()
+    errs = checks.scaled_errors(got_k.t(), want.t())
+    assert all(e <= checks.BWD_SMALL for e in errs.values()), errs
+
+
+def test_k1_k2_match_plain(staged):
+    keys, order, pair_gid, table, p = staged
+    ranges, gid, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
+    _blend_matches_plain(ranges, payload, gid, p, 4)
+
+
+@pytest.mark.parametrize("opacity", [(0.05, 0.3), (0.5, 0.99)])
+def test_k1_k2_on_tiles_of_1_32_33_300_pairs(dev, opacity):
+    """Buckets of one pair, a full bucket, a bucket and one pair, and a tile
+    whose pixels run past 256 pairs, so that warps take a second bucket."""
+    ranges, payload, gid, p = (x.to(dev) if torch.is_tensor(x) else x
+                               for x in synthetic_binning((1, 32, 33, 300), 2, opacity=opacity))
+    _blend_matches_plain(ranges, payload, gid, p, 2)
+
+
+def test_k1_k2_on_the_wall(dev):
+    args, cam = wall_scene(dev)
+    g = WALL_SIZE // 16
+    with torch.no_grad():
+        pre = preprocess(*args, cam, width=WALL_SIZE, height=WALL_SIZE, sh_degree=3)
+        b = binning.bin_and_pack(pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d,
+                                 pre.conics, args[3], pre.colors, grid_w=g, grid_h=g)
+    _blend_matches_plain(b.ranges, b.payload, b.gid, args[0].shape[0], g)
 
 
 def test_k4_bit_equal_to_k1_and_keep_matches_plain(staged):
     keys, order, pair_gid, table, _ = staged
     ranges, _, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
-    k1 = tile_blend.blend_fwd(ranges, payload, 4, 4)
+    *k1, ckpt1 = tile_blend.blend_fwd(ranges, payload, 4, 4)
     for margin in (1.0, 10.0):
-        *k4, keep = tile_blend.blend_fwd_export(ranges, payload, 4, 4, margin)
+        *k4, ckpt4, keep = tile_blend.blend_fwd_export(ranges, payload, 4, 4, margin)
         *_, keep_p = blend.blend_fwd_plain(ranges, payload, 4, 4, keep_margin=margin)
         torch.cuda.synchronize()
         for a, b in zip(k1, k4):
             assert torch.equal(a, b)
         assert torch.equal(keep, keep_p)
+        assert checks.checkpoint_check(ckpt4, ckpt1, ranges, k1[2], k4[2])[2]
 
 
 def test_render_gradients_match_cpu(dev):

@@ -97,8 +97,8 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
         "blend_fwd": lambda: tile_blend.blend_fwd(z(16, 2, dt=torch.int32), z(9, 4), 4, 4),
         "blend_fwd_export": lambda: tile_blend.blend_fwd_export(z(16, 2, dt=torch.int32), z(9, 4), 4, 4, 10.0),
         "blend_bwd": lambda: tile_blend.blend_bwd(
-            z(16, 2, dt=torch.int32), z(9, 4), z(4, dt=torch.int32), z(16, 256),
-            z(16, 256, dt=torch.int32), z(16, 256, 3), z(16, 256), 3, 4, 4),
+            z(16, 2, dt=torch.int32), z(9, 4), z(4, dt=torch.int32), z(16, 256, 3),
+            z(16, 256, dt=torch.int32), z(16, 256, 4), z(16, 256, 3), z(16, 256), 3, 4, 4),
         "blend_probe_fwd": lambda: blend_probe.blend_probe_fwd(
             z(16, 2, dt=torch.int32), z(9, 4), 4, 4, "chunk_exit", 16),
         "blend_probe_fwd_pair2": lambda: blend_probe.blend_probe_fwd_pair2(

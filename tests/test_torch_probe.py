@@ -277,7 +277,7 @@ def test_from_jax_pairs_gives_the_jax_image(scene, chunk):
     b = _binned(scene, chunk)
     r = b["ranges"].numpy()
     assert r[0, 0] == 0 and np.all(r[1:, 0] == r[:-1, 1]) and r[-1, 1] == b["payload"].shape[1]
-    acc, lte, _ = blend.blend_fwd_plain(b["ranges"], b["payload"], b["gw"], b["gh"])
+    acc, lte, *_ = blend.blend_fwd_plain(b["ranges"], b["payload"], b["gw"], b["gh"])
     prod = _jax_fwd("production", scene, chunk)
     np.testing.assert_allclose(acc.numpy(), prod[0], atol=BAR, rtol=0)
     np.testing.assert_allclose(np.exp(lte.numpy()), np.exp(prod[1]), atol=BAR, rtol=0)
@@ -309,12 +309,12 @@ def test_bwd_opt_folded_matches_k2(scene, chunk):
     b = _binned(scene, chunk)
     gid = torch.from_numpy(np.asarray(b["jp"])[10].view(np.int32)[
         np.concatenate([np.arange(s, s + n) for s, n in np.asarray(b["jr"]).T])].copy())
-    acc, lte, nc = blend.blend_fwd_plain(b["ranges"], b["payload"], b["gw"], b["gh"])
+    acc, lte, nc, ckpt = blend.blend_fwd_plain(b["ranges"], b["payload"], b["gw"], b["gh"])
     rng = np.random.default_rng(0)
     ct_a = torch.from_numpy(rng.standard_normal(acc.shape).astype(np.float32))
     ct_t = torch.from_numpy(rng.standard_normal(lte.shape).astype(np.float32))
     p = int(gid.max()) + 1
-    k2 = blend.blend_bwd_plain(b["ranges"], b["payload"], gid, lte, nc, ct_a, ct_t, p, b["gw"], b["gh"])
+    k2 = blend.blend_bwd_plain(b["ranges"], b["payload"], gid, acc, nc, ckpt, ct_a, ct_t, p, b["gw"], b["gh"])
     _, _, raw, nd = _port_fwd(b, "chunk_exit", chunk)
     pair = blend_probe.blend_probe_bwd(b["ranges"], b["payload"], nd, raw, ct_a, ct_t, b["gw"], b["gh"], chunk)
     folded = torch.zeros_like(k2).index_add_(0, gid.to(torch.int64), pair.t())

@@ -72,3 +72,33 @@ def assert_scaled_close(a, b, atol, name=""):
     scale = max(float(np.abs(a).max()), 1e-4)
     err = float(np.abs(a - b).max()) / scale
     assert err <= atol, f"{name}: scaled error {err:.3g} > {atol}"
+
+
+def synthetic_binning(counts, grid_w, seed=0, opacity=(0.05, 0.3), sigma=(1.0, 2.5)):
+    """A binning built directly, tile by tile, in the port's layout: tile t
+    holds counts[t] small Gaussians (standard deviations in `sigma` pixels,
+    opacity uniform in `opacity`) centred in or near the tile, with more
+    pairs than Gaussians so that several pairs fold into one Gaussian.
+    Returns ranges [T, 2] int32, payload [9, M] float32 (mean x, y; conic
+    a, b, c; opacity; rgb), gid [M] int32 and the Gaussian count."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    m = int(counts.sum())
+    ends = np.cumsum(counts)
+    tile = np.repeat(np.arange(len(counts)), counts)
+    mx = (tile % grid_w) * 16 + rng.uniform(-2.0, 18.0, m)
+    my = (tile // grid_w) * 16 + rng.uniform(-2.0, 18.0, m)
+    s1, s2 = rng.uniform(*sigma, (2, m))
+    th = rng.uniform(0.0, np.pi, m)
+    cos, sin = np.cos(th), np.sin(th)
+    cxx = cos**2 * s1**2 + sin**2 * s2**2
+    cyy = sin**2 * s1**2 + cos**2 * s2**2
+    cxy = cos * sin * (s1**2 - s2**2)
+    det = cxx * cyy - cxy**2
+    payload = np.stack([
+        mx, my, cyy / det, -cxy / det, cxx / det, rng.uniform(*opacity, m), *rng.uniform(0.0, 1.0, (3, m)),
+    ]).astype(np.float32)
+    p = max(m // 2, 1)
+    ranges = np.stack([ends - counts, ends], 1).astype(np.int32)
+    gid = rng.integers(0, p, m).astype(np.int32)
+    return torch.from_numpy(ranges), torch.from_numpy(payload), torch.from_numpy(gid), p
