@@ -6,13 +6,16 @@
 Phases, each printing its own lines:
 
 1. device: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/;
+2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/, with
+   the registers and spills of K1 and K4, and K4's live-range log1p
+   against log1pf on every float32 alpha in [1/255, 0.99];
 3. kernel checks: each kernel (K3 tile_ranges_pack, K1 blend_fwd, K2
    blend_bwd, K4 blend_fwd_export) against its plain PyTorch version on the
    card, on the small test scene (64x64), the opaque wall (32x32) and the
    headline scene (1200x680, 400k Gaussians): K1's and K4's bucket
    checkpoints against the plain ones where K2 reads them, K4 bit-equal to
-   K1 and its keep flags against the plain ones; the cached blend through
+   K1 and its keep flags against the plain ones, every keep byte written by
+   K4; the cached blend through
    K4's pruned cache against the fresh blend at export parameters; that K1
    writes exactly the checkpoint words K2 reads; K2's live buckets, the
    checkpoint words and buffer, and K2's atomics per step, counted from
@@ -28,7 +31,8 @@ Phases, each printing its own lines:
    timed on CUDA events, with the launch counts of each cadence; one fresh,
    one export and one cached step under torch.profiler, and each under
    torch.cuda.set_sync_debug_mode("warn") to count host syncs;
-5. kernel times: each kernel and its plain version at the headline shapes;
+5. kernel times: each kernel and its plain version at the headline shapes,
+   K4's walk to its relaxed exit counted beside K1's, and K4/K1 in turns;
 6. probes: each probe kernel (blend_probe_fwd in its six modes,
    blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
    version on the 64x64 scene and on the opaque wall (32x32, where the
@@ -98,7 +102,7 @@ KERNELS = {
         replaces="gsdf_slam_tpu/ops/pallas_blend_grouped.py:276",
     ),
     "blend_fwd_export": dict(
-        source="gsdf_slam_tpu_torch/csrc/blend_fwd.cu",
+        source="gsdf_slam_tpu_torch/csrc/blend_fwd_export.cu",
         replaces="gsdf_slam_tpu/ops/pallas_blend_grouped.py:89 (keep_margin)",
     ),
     # phase 6, the probe path: each replaces the JAX probe's pallas_call
@@ -155,6 +159,11 @@ PAIR_TABLE_SIZES = {"tiny": (2048, 8192), "default": (262_144, 393_216), "headli
 # opacity product and the clamp (FWD_OPS in all).
 FWD_WALK_OPS = 12
 FWD_OPS = 15
+# K4 walks each pixel on to its relaxed exit (ops/blend.py::
+# export_walk_counts): FWD_WALK_OPS on every walked pixel-pair; on each live
+# one the exponent's expf, the opacity product, the clamp and log1pf
+# (EXPORT_LIVE_OPS); expf of log T on the applied ones.
+EXPORT_LIVE_OPS = 4
 # Backward: the forward's, then on each applied pixel-pair the log1p and exp
 # of T and the 40 of dL/dalpha and the nine per-pair gradients (BWD_OPS in
 # all).
@@ -282,13 +291,16 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
                     and ck4_same)
     k4_err = max(fwd_err(acc_4, lte_4), ck4_c, ck4_t)
     keep_mismatch = int((keep_k != keep_p).sum())
+    # K4 launched into a keep buffer of 2s: every byte of keep is its own
+    unwritten = int((checks.keep_bytes(r_k, p_k, st["gw"], MARGIN) != keep_k.to(torch.uint8)).sum())
     kept = int(keep_k.sum())
     pruned_share = 1.0 - kept / max(p_k.shape[1], 1)
     log(f"[check {name}] K4 accum/log_t_eff/n_contrib/checkpoints bit-equal to K1={k4_bit_equal} "
         f"(checkpoints alone {ck4_same}); checkpoints against the plain version's colour "
         f"{ck4_c:.3g} T {ck4_t:.3g}; max_abs_err to the plain version {k4_err:.3g}; keep mismatches "
         f"against the plain version={keep_mismatch} of {p_k.shape[1]} pairs; kept {kept}, pruned share "
-        f"{pruned_share:.6f} (1 - kept / post-cull pairs, margin {MARGIN:g})")
+        f"{pruned_share:.6f} (1 - kept / post-cull pairs, margin {MARGIN:g}); keep bytes not written by "
+        f"the kernel or not its flags: {unwritten}")
     margin_ok = True
     if headline:
         *_, keep_p1 = blend.blend_fwd_plain(r_k, p_k, st["gw"], st["gh"], keep_margin=1.0)
@@ -380,6 +392,8 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
         failed.append("K4-checkpoints")
     if not headline and keep_mismatch != 0:
         failed.append("K4-keep")
+    if unwritten:
+        failed.append("K4-keep-bytes-unwritten")
     if headline and not pruned_share > 0.0:
         failed.append("K4-pruned-nothing")
     if not margin_ok:
@@ -796,6 +810,18 @@ def main() -> int:
     for line in kernels.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    usage = kernels.ptxas_usage(kernels.build_info.get("log", ""))
+    for name in ("blend_fwd_kernel", "blend_fwd_export_kernel"):
+        u = usage.get(name, {})
+        log(f"[build] {name}: {u.get('registers')} registers, {u.get('spill_stores')} bytes spill stores, "
+            f"{u.get('spill_loads')} bytes spill loads, {u.get('smem')} bytes smem "
+            f"({65536 // (256 * u['registers']) if u.get('registers') else '?'} blocks of 256 threads an SM "
+            f"by registers)")
+    mismatches = checks.log1p_live_mismatches()
+    log(f"[build] K4's live-range log1p against log1pf, on every float32 alpha in [1/255, 0.99]: "
+        f"{mismatches} bit mismatches")
+    if mismatches:
+        failed.append("K4-log1p-not-log1pf")
 
     # ---- 3. kernel checks
     args, cam = small_scene(torch, device)
@@ -916,6 +942,17 @@ def main() -> int:
     # counted).
     applied = counts["applied"]
     fwd_ops = FWD_WALK_OPS * nc_sum + (FWD_OPS - FWD_WALK_OPS) * applied
+    # K4's walk down to its relaxed exit at MARGIN, and at margin 1, which
+    # is K1's walk (the frontier pair included); a warp-step is one pair of
+    # a warp's walk, which lasts until its slowest pixel exits
+    walk4, live4 = blend.export_walk_counts(ranges, payload, st["gw"], MARGIN)
+    walk1, live1 = blend.export_walk_counts(ranges, payload, st["gw"], 1.0)
+    walked4, walked_live4, walked1, walked_live1 = (int(x.sum()) for x in (walk4, live4, walk1, live1))
+    steps4, steps1 = (int(x.view(-1, 8, 32).amax(-1).sum()) for x in (walk4, walk1))
+    walk_ratio = steps4 / steps1
+    log(f"[bound] K4 at margin {MARGIN:g} walks {walked4} pixel-pairs, {walked_live4} of them live, in {steps4} "
+        f"warp-steps; K1 (margin 1) {walked1}, {walked_live1} live, {steps1} warp-steps: walk ratio "
+        f"{walk_ratio:.4f} in warp-steps, {walked4 / walked1:.4f} in pixel-pairs")
     bounds = {
         "tile_ranges_pack": bound_ms(20 * pairs_live + st["table"].numel() * 4  # keys, order, pair_gid, table
                                      + 8 * num_tiles + 40 * pairs_live),  # ranges, gid, payload
@@ -924,7 +961,12 @@ def main() -> int:
         # cotangents, the checkpoints it reads; grads [P, 9]
         "blend_bwd": bound_ms(8 * num_tiles + 40 * pairs_k2 + 32 * pix + 16 * counts["words"] + 36 * st["p"],
                               FWD_WALK_OPS * nc_sum + (BWD_OPS - FWD_WALK_OPS) * applied, 3 * applied, sfu_rate),
-        "blend_fwd_export": bound_ms(fwd_bytes + pairs_live, fwd_ops, 2 * applied, sfu_rate),  # + keep
+        # K1's bytes and keep [M]; the walk to the relaxed exit, the
+        # exponent's expf on its live pixel-pairs and expf of log T on the
+        # applied ones
+        "blend_fwd_export": bound_ms(fwd_bytes + pairs_live,
+                                     FWD_WALK_OPS * walked4 + EXPORT_LIVE_OPS * walked_live4,
+                                     walked_live4 + applied, sfu_rate),
     }
     timings = {
         "tile_ranges_pack": (lambda: binning.tile_ranges_pack(*a3),
@@ -961,6 +1003,12 @@ def main() -> int:
     for name, (kern, plain) in timings.items():
         time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles", launches[name], head_err[name],
                    bounds[name])
+    k1_fn, k4_fn = timings["blend_fwd"][0], timings["blend_fwd_export"][0]
+    turns = [graph_ms(f) for f in (k1_fn, k4_fn, k4_fn, k1_fn)]
+    k4_over_k1 = (turns[1] + turns[2]) / (turns[0] + turns[3])
+    log(f"[time] K4/K1 in turns (K1, K4, K4, K1: {', '.join(f'{v:.4f}' for v in turns)} ms graph): "
+        f"{k4_over_k1:.4f}, against the walk ratio {walk_ratio:.4f} in warp-steps "
+        f"({walked4 / walked1:.4f} in pixel-pairs) on {smi}")
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;

@@ -1,7 +1,6 @@
 // K1 blend_fwd: forward alpha blend of every 16x16 tile, with the bucket
-// checkpoints that K2 starts from.
-// K4 blend_fwd_export: K1 plus a per-pair liveness flag for the pruned
-// binning cache.
+// checkpoints that K2 starts from. K4 (blend_fwd_export.cu) computes the
+// same outputs, bit for bit, beside its keep flags.
 //
 // K1 replaces gsdf_slam_tpu/ops/pallas_blend_grouped.py::_fwd_kernel as
 // launched by _run_fwd with keep_margin=None. The TPU kernel walks groups
@@ -31,25 +30,6 @@
 // ends before 32b stores nothing there. K2 derives each tile's largest
 // n_contrib itself.
 //
-// K4 replaces the same _fwd_kernel launched with keep_margin (the export
-// variant, pallas_blend_grouped.py:100-109, 173-184). It also writes
-// keep[j] = 1 for every pair j that some pixel sees live (alpha > 0) while
-// that pixel's EXCLUSIVE raw log T is still >= log_exit = log(1e-4) -
-// log(margin). It carries two logs per pixel: the raw log T, which
-// advances on every live pair, and K1's applied log T, which advances, with
-// the colour and n_contrib, only on pairs whose inclusive raw log T is
-// still >= log(1e-4). While a pixel applies, the two are the same value,
-// so accum, log_t_eff, n_contrib and the checkpoints are bit-equal to K1's
-// (the same products in the same order, the checkpoints written at the
-// same applied pairs). The pixel keeps walking past the T = 1e-4 frontier
-// until its raw log T drops below log_exit: that is the TPU kernel's
-// relaxed exit, which lets the margin band be observed. Raw T never
-// increases, so no later pair of that pixel can pass the keep test, and a
-// per-pixel exit gives exactly the TPU kernel's keep set (the argument of
-// PARITY.md D9). Every writer of keep[j] stores the same 1, so a plain
-// store is enough; the wrapper zero-fills keep, so a pair that no pixel
-// reached stays 0, like the aliased zero row of _run_fwd.
-//
 // Bound: the per-pixel-pair instruction stream (the exponent and live test
 // on every walked pixel-pair; its expf and the opacity product on every
 // live one; log1pf and expf of the carry on every applied one), of which
@@ -67,35 +47,20 @@
 //   the rest of the pair; every other pixel computes exactly as before, so
 //   the applied set and every output are unchanged, and a warp in which no
 //   pixel passes skips the pair's special functions altogether;
-// - the early exit skips the pairs behind every pixel's frontier. K4 walks
-//   further, to the margin band, which costs it the pairs between the two
-//   frontiers.
+// - the early exit skips the pairs behind every pixel's frontier.
 #include "common.cuh"
 
 namespace {
 
 using namespace gsdf;
 
-// a staged pair: mx my a b | c op r g | b thr - -
-constexpr int kStagedWords = 12;
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-template <bool kExport>
 __global__ void __launch_bounds__(kPix) blend_fwd_kernel(const int* __restrict__ ranges,
                                                         const float* __restrict__ payload,
                                                         long long m, int grid_w,
-                                                        float log_exit,
                                                         float* __restrict__ accum,
                                                         float* __restrict__ log_t_eff,
                                                         int* __restrict__ n_contrib,
-                                                        float4* __restrict__ ckpt,
-                                                        unsigned char* __restrict__ keep) {
+                                                        float4* __restrict__ ckpt) {
   __shared__ float4 s[2][kBatch][kStagedWords / 4];
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -134,8 +99,6 @@ __global__ void __launch_bounds__(kPix) blend_fwd_kernel(const int* __restrict__
   };
 
   float log_t = 0.0f;
-  float log_raw = 0.0f;  // K4: raw log T over every live pair
-  bool applying = true;  // K4: log_raw is still >= log(1e-4), log_t == log_raw
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   int last = 0;
   bool done = false;
@@ -161,41 +124,18 @@ __global__ void __launch_bounds__(kPix) blend_fwd_kernel(const int* __restrict__
       pair_alpha(q, v.y);
       if (!is_live(q)) continue;
       const float l1m = log1pf(-q.alpha);
-      if constexpr (kExport) {
-        if (log_raw >= log_exit) keep[b0 + k] = 1;
-        const float incl = log_raw + l1m;
-        if (applying) {
-          if (incl < kLogTEps) {
-            applying = false;
-          } else {
-            checkpoint(b0 - start + k, log_t, c0, c1, c2);
-            const float w = q.alpha * expf(log_t);
-            c0 = c0 + w * v.z;
-            c1 = c1 + w * v.w;
-            c2 = c2 + w * w3.x;
-            log_t = incl;
-            last = b0 - start + k + 1;
-          }
-        }
-        log_raw = incl;
-        if (log_raw < log_exit) {
-          done = true;
-          break;
-        }
-      } else {
-        const float incl = log_t + l1m;
-        if (incl < kLogTEps) {
-          done = true;
-          break;
-        }
-        checkpoint(b0 - start + k, log_t, c0, c1, c2);
-        const float w = q.alpha * expf(log_t);
-        c0 = c0 + w * v.z;
-        c1 = c1 + w * v.w;
-        c2 = c2 + w * w3.x;
-        log_t = incl;
-        last = b0 - start + k + 1;
+      const float incl = log_t + l1m;
+      if (incl < kLogTEps) {
+        done = true;
+        break;
       }
+      checkpoint(b0 - start + k, log_t, c0, c1, c2);
+      const float w = q.alpha * expf(log_t);
+      c0 = c0 + w * v.z;
+      c1 = c1 + w * v.w;
+      c2 = c2 + w * w3.x;
+      log_t = incl;
+      last = b0 - start + k + 1;
     }
   }
   const long long pix = (long long)tile * kPix + tid;
@@ -213,20 +153,8 @@ extern "C" int gsdf_blend_fwd(const void* ranges, const void* payload, long long
                               int num_tiles, int grid_w, void* accum, void* log_t_eff,
                               void* n_contrib, void* ckpt, void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_fwd_kernel<false><<<num_tiles, gsdf::kPix, 0, (cudaStream_t)stream>>>(
-      (const int*)ranges, (const float*)payload, m, grid_w, gsdf::kLogTEps, (float*)accum,
-      (float*)log_t_eff, (int*)n_contrib, (float4*)ckpt, nullptr);
-  return (int)cudaGetLastError();
-}
-
-// keep: [M] bytes, zero-filled by the caller.
-extern "C" int gsdf_blend_fwd_export(const void* ranges, const void* payload, long long m,
-                                     int num_tiles, int grid_w, float log_exit, void* accum,
-                                     void* log_t_eff, void* n_contrib, void* ckpt, void* keep,
-                                     void* stream) {
-  if (num_tiles <= 0) return 0;
-  blend_fwd_kernel<true><<<num_tiles, gsdf::kPix, 0, (cudaStream_t)stream>>>(
-      (const int*)ranges, (const float*)payload, m, grid_w, log_exit, (float*)accum,
-      (float*)log_t_eff, (int*)n_contrib, (float4*)ckpt, (unsigned char*)keep);
+  blend_fwd_kernel<<<num_tiles, gsdf::kPix, 0, (cudaStream_t)stream>>>(
+      (const int*)ranges, (const float*)payload, m, grid_w, (float*)accum, (float*)log_t_eff,
+      (int*)n_contrib, (float4*)ckpt);
   return (int)cudaGetLastError();
 }

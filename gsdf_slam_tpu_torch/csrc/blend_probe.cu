@@ -80,11 +80,7 @@ struct Pix {
 
 using Chunk = float[kRows][kMaxChunk];
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// cp_async4 and cp_async_commit: common.cuh
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");

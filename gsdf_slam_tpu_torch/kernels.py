@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,10 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-# K1 blend_fwd and K4 blend_fwd_export share blend_fwd.cu; the three blend
-# probes share blend_probe.cu; the four pair-table kernels pair_table.cu
-SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_bwd.cu", "blend_probe.cu", "expand_gather.cu",
-           "pair_table.cu")
+# the three blend probes share blend_probe.cu; the four pair-table kernels
+# pair_table.cu
+SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
+           "expand_gather.cu", "pair_table.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -55,6 +56,9 @@ _SIGNATURES = {
     # ranges, payload, M, num_tiles, grid_w, log_exit, accum, log_t_eff,
     # n_contrib, ckpt, keep, stream
     "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P),
+    # mismatches, stream: K4's live-range log1p against log1pf (a check,
+    # not a kernel of the port)
+    "gsdf_log1p_live_mismatches": (_P, _P),
     # ranges, payload, gid, M, num_tiles, grid_w, accum, n_contrib, ckpt,
     # ct_accum, ct_log_t_eff, grads, stream
     "gsdf_blend_bwd": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P),
@@ -107,7 +111,9 @@ def build() -> Path:
         h.update(hdr.read_bytes())
     out = BUILD_DIR / f"libgsdf_torch_kernels-{h.hexdigest()[:16]}.so"
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, cached=True)
+        log = out.with_suffix(".log")
+        build_info.update(path=str(out), seconds=0.0, cached=True,
+                          log=log.read_text() if log.exists() else "")
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -137,8 +143,11 @@ def build() -> Path:
     secs = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    log += res.stdout + res.stderr
+    # kept beside the library, for the ptxas lines of a later cached load
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=secs, cached=False, log=log + res.stdout + res.stderr)
+    build_info.update(path=str(out), seconds=secs, cached=False, log=log)
     return out
 
 
@@ -185,3 +194,39 @@ def launch(entry: str, *args) -> None:
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
+
+
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Registers, spill bytes and shared memory of each kernel, from the
+    `-Xptxas=-v` lines of a build log: {kernel name: {"registers",
+    "spill_stores", "spill_loads", "smem"}}, the name read from the
+    mangled entry, a template's instance named with its mangled arguments
+    (`probe_fwd_kernel<Li4E>`)."""
+    out: dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # _ZN<n>_GLOBAL__N__<hash>_<n>_<file>_cu_<8 hex><len><name>[I<args>E]...
+            mangled = m.group(1)
+            k = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if k:
+                cut = k.end() + int(k.group(1))
+                cur = mangled[k.end(): cut]
+                if mangled[cut:].startswith("I"):
+                    cur += f"<{mangled[cut + 1: mangled.index('E', cut) + 1]}>"
+            else:
+                cur = mangled
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(m.group(1)) if m else 0
+    return out

@@ -5,7 +5,8 @@ Port of `gsdf_slam_tpu/ops/blend.py`. `blend_fwd_plain` and
 (`ops/tile_blend.py`), reading the contiguous sorted payload that K3
 packs: the forward scans chunks of pairs, the backward K2's 32-pair
 buckets from the forward's checkpoints. `blend_fwd_plain` with
-`keep_margin` is also the plain version of K4.
+`keep_margin` is also the plain version of K4, and `export_walk_counts`
+counts K4's walk past the frontier down to its relaxed exit.
 
 Early-termination parity (PARITY.md D9): the reference stops a pixel once
 T * (1 - alpha) < 1e-4 (forward.cu:437-442). Raw transmittance never
@@ -28,6 +29,8 @@ other tiles in the chunk.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -139,6 +142,44 @@ def keep_log_exit(margin: float) -> float:
     return float(np.float32(np.log(T_EPS) - np.log(margin)))
 
 
+class _Chunk(NamedTuple):
+    """One chunk of the plain forward's walk over the sorted pairs."""
+
+    s: int  # index of its first pair
+    t: torch.Tensor  # [K] tile of each pair
+    local: torch.Tensor  # [K] index of each pair within its tile
+    pl: torch.Tensor  # [9, K] payload
+    alpha: torch.Tensor  # [K, 256], 0 where the pair is dead
+    live: torch.Tensor  # [K, 256] bool
+    log1m: torch.Tensor  # [K, 256] log(1 - alpha)
+    seg: torch.Tensor  # [K] first pair of each pair's tile segment in the chunk
+    excl: torch.Tensor  # [K, 256] float64 exclusive prefix of log1m within the segment
+    incl: torch.Tensor  # [K, 256] float64 inclusive prefix
+    carry: torch.Tensor  # [K, 256] the pixel's raw log T before the chunk
+
+
+def _raw_chunks(ranges, payload, grid_w: int):
+    """The plain forward's walk, PLAIN_CHUNK pairs at a time, carrying each
+    pixel's raw log T (every live pair) across chunks in float32: the raw
+    log T before pair k of a chunk is carry + excl, after it carry + incl,
+    each rounded once to float32."""
+    dev = payload.device
+    m = payload.shape[1]
+    dxl, dyl = _pixel_offsets(dev)
+    log_raw = torch.zeros((ranges.shape[0], PIX_PER_TILE), device=dev)
+    tile, local = pair_tiles(ranges, m)
+    for s in range(0, m, PLAIN_CHUNK):
+        t = tile[s : s + PLAIN_CHUNK]
+        pl = payload[:, s : s + PLAIN_CHUNK]
+        alpha, live, _, _, _ = _geometry(pl, t, grid_w, dxl, dyl)
+        alpha = torch.where(live, alpha, 0.0)
+        log1m = torch.log1p(-alpha)
+        seg = _segment_starts(t)
+        excl, incl = _segmented_prefix(log1m, seg)
+        yield _Chunk(s, t, local[s : s + PLAIN_CHUNK], pl, alpha, live, log1m, seg, excl, incl, log_raw[t])
+        log_raw.index_add_(0, t, log1m)
+
+
 def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int, keep_margin: float | None = None):
     """Plain version of K1. Returns accum [T,256,3], log_t_eff [T,256],
     n_contrib [T,256] int32 and the checkpoints [T + M // 32, 256, 4]: at
@@ -155,30 +196,18 @@ def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int, keep_margin: floa
     dev = payload.device
     num_tiles = grid_w * grid_h
     m = payload.shape[1]
-    dxl, dyl = _pixel_offsets(dev)
-    log_raw = torch.zeros((num_tiles, PIX_PER_TILE), device=dev)
     log_eff = torch.zeros((num_tiles, PIX_PER_TILE), device=dev)
     accum = torch.zeros((num_tiles, PIX_PER_TILE, 3), device=dev)
     n_contrib = torch.zeros((num_tiles, PIX_PER_TILE), dtype=torch.int32, device=dev)
     keep = None if keep_margin is None else torch.zeros((m,), dtype=torch.bool, device=dev)
     ckpt = torch.zeros((checkpoint_slots(num_tiles, m), PIX_PER_TILE, 4), device=dev)
     first = checkpoint_first(ranges)
-    tile, local = pair_tiles(ranges, m)
-    for s in range(0, m, PLAIN_CHUNK):
-        t = tile[s : s + PLAIN_CHUNK]
-        pl = payload[:, s : s + PLAIN_CHUNK]
-        alpha, live, _, _, _ = _geometry(pl, t, grid_w, dxl, dyl)
-        alpha = torch.where(live, alpha, 0.0)
-        log1m = torch.log1p(-alpha)
-        seg = _segment_starts(t)
-        excl, incl = _segmented_prefix(log1m, seg)
-        carry = log_raw[t]
+    for s, t, loc, pl, alpha, live, log1m, seg, excl, incl, carry in _raw_chunks(ranges, payload, grid_w):
         t_excl = torch.exp(carry + excl.to(torch.float32))
         applied = (carry + incl.to(torch.float32)) >= LOG_T_EPS
         w = alpha * t_excl * applied
         col = pl[6:9].t()
         wc = w[:, :, None] * col[:, None, :]
-        loc = local[s : s + PLAIN_CHUNK]
         rows = torch.nonzero(loc % BUCKET == 0).squeeze(1)  # the chunk's bucket starts
         if rows.numel():
             tr = t[rows]
@@ -187,9 +216,8 @@ def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int, keep_margin: floa
                 [(carry[rows] + excl[rows].to(torch.float32))[..., None], accum[tr] + c_excl.to(torch.float32)],
                 -1)
         accum.index_add_(0, t, wc)
-        log_raw.index_add_(0, t, log1m)
         log_eff.index_add_(0, t, torch.where(applied, log1m, 0.0))
-        idx = (local[s : s + PLAIN_CHUNK] + 1).to(torch.int32)[:, None]
+        idx = (loc + 1).to(torch.int32)[:, None]
         cand = torch.where(applied & live, idx, 0)
         n_contrib.scatter_reduce_(0, t[:, None].expand_as(cand), cand, reduce="amax")
         if keep is not None:
@@ -198,6 +226,24 @@ def blend_fwd_plain(ranges, payload, grid_w: int, grid_h: int, keep_margin: floa
     if keep is not None:
         return accum, log_eff, n_contrib, ckpt, keep
     return accum, log_eff, n_contrib, ckpt
+
+
+def export_walk_counts(ranges, payload, grid_w: int, margin: float):
+    """What an export step makes K4 walk, per pixel [T, 256] int64: the
+    pairs of its tile it walks down to its relaxed exit (those before
+    which its exclusive raw log T is still >= log(T_EPS / margin): the
+    applied pairs, the frontier pair and the margin band, dead pairs
+    included) and the live ones among them. At margin 1 the walk is K1's,
+    the frontier pair included. The same walk as `blend_fwd_plain`, so a
+    pair is kept there iff it is live in some pixel's walk."""
+    log_exit = keep_log_exit(margin)
+    walked = torch.zeros((ranges.shape[0], PIX_PER_TILE), dtype=torch.int64, device=payload.device)
+    live_n = torch.zeros_like(walked)
+    for c in _raw_chunks(ranges, payload, grid_w):
+        walk = (c.carry + c.excl.to(torch.float32)) >= log_exit
+        walked.index_add_(0, c.t, walk.to(torch.int64))
+        live_n.index_add_(0, c.t, (walk & c.live).to(torch.int64))
+    return walked, live_n
 
 
 def _bucket_steps(ranges, payload, n_contrib, grid_w: int):

@@ -1,6 +1,6 @@
-"""The tile blend: kernels K1 (forward), K4 (forward with the keep flag)
-and K2 (backward), the fresh and the cached `torch.autograd.Function`, and
-the binning cache.
+"""The tile blend: kernels K1 (forward), K4 (the forward of an export
+step, with the keep flag) and K2 (backward), the fresh and the cached
+`torch.autograd.Function`, and the binning cache.
 
 Port of `gsdf_slam_tpu/ops/pallas_blend_grouped.py` (`_make_fused_blend`,
 `_make_cached_blend`, `_run_fwd`, `_run_bwd`, `_fold_pair_grads`,
@@ -65,9 +65,12 @@ def blend_fwd(ranges, payload, grid_w: int, grid_h: int):
 def blend_fwd_export(ranges, payload, grid_w: int, grid_h: int, margin: float):
     """K4: K1's outputs, checkpoints included (bit-equal where K2 reads
     them), plus keep [M] bool, True for a pair that some pixel sees live
-    while its exclusive raw log T is still >= log(1e-4 / margin).
-    Replaces `_fwd_kernel` of ops/pallas_blend_grouped.py launched with
-    keep_margin."""
+    while its exclusive raw log T is still >= log(1e-4 / margin), margin
+    >= 1. Replaces `_fwd_kernel` of ops/pallas_blend_grouped.py launched
+    with keep_margin. The kernel writes keep over every tile's range, so
+    the ranges must tile [0, M), as K3's do."""
+    if not margin >= 1.0:
+        raise ValueError(f"blend_fwd_export: margin must be >= 1, got {margin}")
     if kernels.runs_plain(ranges):
         return blend_fwd_plain(ranges, payload, grid_w, grid_h, keep_margin=margin)
     kernels.library()  # builds on first use; raises where it cannot
@@ -77,7 +80,7 @@ def blend_fwd_export(ranges, payload, grid_w: int, grid_h: int, margin: float):
     kernels.check("ranges", ranges, torch.int32, (num_tiles, 2), dev)
     kernels.check("payload", payload, torch.float32, (PAYLOAD_ROWS, m), dev)
     accum, log_t_eff, n_contrib, ckpt = _fwd_outputs(num_tiles, m, dev)
-    keep = torch.zeros((m,), dtype=torch.bool, device=dev)
+    keep = torch.empty((m,), dtype=torch.bool, device=dev)
     kernels.LAUNCHES["blend_fwd_export"] += 1
     kernels.launch(
         "gsdf_blend_fwd_export", ranges.data_ptr(), payload.data_ptr(), m, num_tiles,

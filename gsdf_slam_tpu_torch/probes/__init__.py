@@ -3,7 +3,10 @@
     python -m gsdf_slam_tpu_torch.probes.kernel_probe [name ...]
     python -m gsdf_slam_tpu_torch.probes.expand_probe [mp ...]
     python -m gsdf_slam_tpu_torch.probes.microbench [--p P] [--mp MP] [name ...]
+    python -m gsdf_slam_tpu_torch.probes.tree_turns DIR [DIR ...] [--rounds N]
 
-Ports of `benchmarks/kernel_probe.py`, `benchmarks/expand_probe.py` and
-`benchmarks/microbench.py`.
+The first three port `benchmarks/kernel_probe.py`,
+`benchmarks/expand_probe.py` and `benchmarks/microbench.py`; `tree_turns`
+times the blend kernels of other checkouts (the parent commit, a variant)
+in turns with this tree's.
 """

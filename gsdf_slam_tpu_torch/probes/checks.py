@@ -1,6 +1,6 @@
 """The probe kernels, and the bucket checkpoints of K1 and K4, against
 their plain versions: the bars and the comparisons (and the count of
-checkpoint words K1 writes), shared by
+checkpoint words K1 writes, and the keep bytes K4 writes), shared by
 chip_smoke.py and tests/test_torch_cuda.py so that each bar is defined
 once.
 
@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..ops.blend import checkpoints_read
+from ..ops.blend import checkpoint_slots, checkpoints_read, keep_log_exit
 from ..ops.blend_probe import FLOOR_SCALE, pair_n_done
 
 FWD_SMALL = 5e-6
@@ -155,3 +155,27 @@ def checkpoint_words_written(ranges, payload, grid_w, shape) -> int:
     kernels.launch("gsdf_blend_fwd", ranges.data_ptr(), payload.data_ptr(), payload.shape[1], num_tiles, grid_w,
                    *(o.data_ptr() for o in outs), ckpt.data_ptr())
     return int(torch.isfinite(ckpt[..., 0]).sum())
+
+
+def keep_bytes(ranges, payload, grid_w, margin) -> torch.Tensor:
+    """K4 launched into a keep buffer of 2s: the bytes it left, uint8 [M],
+    to hold against the plain keep flags (a byte K4 did not write stays
+    2). The launch is made outside the wrapper, so it is not counted."""
+    num_tiles, dev, m = ranges.shape[0], ranges.device, payload.shape[1]
+    keep = torch.full((m,), 2, dtype=torch.uint8, device=dev)
+    outs = (torch.empty((num_tiles, 256, 3), device=dev), torch.empty((num_tiles, 256), device=dev),
+            torch.empty((num_tiles, 256), dtype=torch.int32, device=dev),
+            torch.empty((checkpoint_slots(num_tiles, m), 256, 4), device=dev))
+    kernels.launch("gsdf_blend_fwd_export", ranges.data_ptr(), payload.data_ptr(), m, num_tiles, grid_w,
+                   keep_log_exit(margin), *(o.data_ptr() for o in outs), keep.data_ptr())
+    return keep
+
+
+def log1p_live_mismatches() -> int:
+    """The float32 alphas in [1/255, 0.99], every one, at which K4's
+    live-range log1p (csrc/blend_fwd_export.cu) differs in any bit from
+    the CUDA math library's log1pf(-alpha), which K1 calls: 0 keeps K4
+    bit-equal to K1. Needs the card."""
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.launch("gsdf_log1p_live_mismatches", out.data_ptr())
+    return int(out.item())

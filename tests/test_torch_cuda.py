@@ -8,7 +8,9 @@ also runs where jax is not installed:
 
 import pytest
 import torch
-from torch_port_helpers import FOV, POSE, scene_arrays, synthetic_binning, torch_args
+from torch_port_helpers import (
+    EXPORT_BINNINGS, FOV, POSE, export_binning, scene_arrays, synthetic_binning, torch_args,
+)
 
 from gsdf_slam_tpu_torch import kernels
 from gsdf_slam_tpu_torch.ops import (
@@ -103,28 +105,68 @@ def test_k1_k2_on_tiles_of_1_32_33_300_pairs(dev, opacity):
     _blend_matches_plain(ranges, payload, gid, p, 2)
 
 
-def test_k1_k2_on_the_wall(dev):
+def _wall_binned(dev):
+    """K3's binning of the wall (32x32) and its Gaussian count."""
     args, cam = wall_scene(dev)
     g = WALL_SIZE // 16
     with torch.no_grad():
         pre = preprocess(*args, cam, width=WALL_SIZE, height=WALL_SIZE, sh_degree=3)
         b = binning.bin_and_pack(pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d,
                                  pre.conics, args[3], pre.colors, grid_w=g, grid_h=g)
-    _blend_matches_plain(b.ranges, b.payload, b.gid, args[0].shape[0], g)
+    return b, args[0].shape[0]
 
 
-def test_k4_bit_equal_to_k1_and_keep_matches_plain(staged):
-    keys, order, pair_gid, table, _ = staged
-    ranges, _, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
-    *k1, ckpt1 = tile_blend.blend_fwd(ranges, payload, 4, 4)
-    for margin in (1.0, 10.0):
-        *k4, ckpt4, keep = tile_blend.blend_fwd_export(ranges, payload, 4, 4, margin)
-        *_, keep_p = blend.blend_fwd_plain(ranges, payload, 4, 4, keep_margin=margin)
-        torch.cuda.synchronize()
-        for a, b in zip(k1, k4):
-            assert torch.equal(a, b)
-        assert torch.equal(keep, keep_p)
-        assert checks.checkpoint_check(ckpt4, ckpt1, ranges, k1[2], k4[2])[2]
+def test_k1_k2_on_the_wall(dev):
+    b, p = _wall_binned(dev)
+    _blend_matches_plain(b.ranges, b.payload, b.gid, p, WALL_SIZE // 16)
+
+
+K4_BINNINGS = ("staged64", "sparse", "dense", "wall", *EXPORT_BINNINGS)
+
+
+def _k4_binning(name, dev, staged):
+    """(ranges, payload, grid_w, grid_h) on the card: K3's binning of the
+    opaque 64x64 scene, the tiles of 1/32/33/300 pairs at both opacities,
+    the wall, and the one-tile binnings of EXPORT_BINNINGS (the phase
+    switch across the batch barrier; the block's exit vote)."""
+    if name == "staged64":
+        keys, order, pair_gid, table, _ = staged
+        ranges, _, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
+        return ranges, payload, 4, 4
+    if name == "wall":
+        b, _ = _wall_binned(dev)
+        return b.ranges, b.payload, WALL_SIZE // 16, WALL_SIZE // 16
+    if name in EXPORT_BINNINGS:
+        ranges, payload, _, _ = export_binning(name)
+        return ranges.to(dev), payload.to(dev), 1, 1
+    kw = {} if name == "sparse" else dict(opacity=(0.5, 0.99))
+    ranges, payload, _, _ = synthetic_binning((1, 32, 33, 300), 2, **kw)
+    return ranges.to(dev), payload.to(dev), 2, 2
+
+
+@pytest.mark.parametrize("margin", [1.0, 10.0, 1e4])
+@pytest.mark.parametrize("name", K4_BINNINGS)
+def test_k4_bit_equal_to_k1_and_keep_matches_plain(staged, dev, name, margin):
+    """K4 bit-equal to K1, checkpoints included, and its keep flags equal
+    to the plain ones, with every byte of keep written by the kernel;
+    margin 1e4 walks the band to the tile's end."""
+    ranges, payload, gw, gh = _k4_binning(name, dev, staged)
+    *k1, ckpt1 = tile_blend.blend_fwd(ranges, payload, gw, gh)
+    *k4, ckpt4, keep = tile_blend.blend_fwd_export(ranges, payload, gw, gh, margin)
+    *_, keep_p = blend.blend_fwd_plain(ranges, payload, gw, gh, keep_margin=margin)
+    written = checks.keep_bytes(ranges, payload, gw, margin)
+    torch.cuda.synchronize()
+    for a, b in zip(k1, k4):
+        assert torch.equal(a, b)
+    assert checks.checkpoint_check(ckpt4, ckpt1, ranges, k1[2], k4[2])[2]
+    assert torch.equal(keep, keep_p)
+    assert torch.equal(written, keep_p.to(torch.uint8))
+
+
+def test_k4_log1p_is_log1pf_on_every_live_alpha(dev):
+    """K4's log1p for live alphas equals log1pf(-alpha) bit for bit on all
+    float32 alphas in [1/255, 0.99], so K4's log T is K1's."""
+    assert checks.log1p_live_mismatches() == 0
 
 
 def test_render_gradients_match_cpu(dev):

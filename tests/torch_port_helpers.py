@@ -102,3 +102,20 @@ def synthetic_binning(counts, grid_w, seed=0, opacity=(0.05, 0.3), sigma=(1.0, 2
     ranges = np.stack([ends - counts, ends], 1).astype(np.int32)
     gid = rng.integers(0, p, m).astype(np.int32)
     return torch.from_numpy(ranges), torch.from_numpy(payload), torch.from_numpy(gid), p
+
+
+# K4's walk across batches, one tile each (synthetic_binning keywords):
+# "switch", 600 faint wide Gaussians, whose pixels pass T = 1e-4 inside the
+# first 256-pair batch and the relaxed exit of margin 10 in the second;
+# "early_exit", 800 opaque wide Gaussians, which every pixel has passed
+# within the first batch, so the block exits with three batches unwalked.
+EXPORT_BINNINGS = {
+    "switch": dict(counts=(600,), opacity=(0.035, 0.045), sigma=(30.0, 40.0)),
+    "early_exit": dict(counts=(800,), opacity=(0.9, 0.99), sigma=(30.0, 40.0)),
+}
+
+
+def export_binning(name):
+    """synthetic_binning of an EXPORT_BINNINGS entry, on a 1x1 tile grid."""
+    kw = dict(EXPORT_BINNINGS[name])
+    return synthetic_binning(kw.pop("counts"), 1, **kw)
