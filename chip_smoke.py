@@ -7,7 +7,8 @@ Phases, each printing its own lines:
 
 1. device: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/, with
-   the registers and spills of K1 and K4, and K4's live-range log1p
+   the registers and spills of K1, K4 and the blend probes (chunk_exit,
+   pair2, the backward), and the live-range log1p of K4 and the probes
    against log1pf on every float32 alpha in [1/255, 0.99];
 3. kernel checks: each kernel (K3 tile_ranges_pack, K1 blend_fwd, K2
    blend_bwd, K4 blend_fwd_export) against its plain PyTorch version on the
@@ -39,7 +40,9 @@ Phases, each printing its own lines:
    chunk exit fires) at chunks of 128 and 16, and on the headline; then the
    probe path through its entry points, `probes.kernel_probe.main` and
    `probes.expand_probe.main`, with the launch counts taken over exactly
-   that run; then each probe kernel's time beside its plain version's;
+   that run; then each probe kernel's time beside its plain version's and
+   its bound, counted on the work its function needs (`[bound]`: the
+   pixel-pairs chunk_exit's walk covers, the live and the applied ones);
 7. pair table: each kernel of ops/pair_table.py (realign_copy,
    window_gather_rows, window_gather_cols, xpose_cumsum) bit-equal to its
    plain version on benchmarks/microbench.py's inputs at a tiny size, at
@@ -111,11 +114,11 @@ KERNELS = {
         replaces="benchmarks/kernel_probe.py:738",
     ),
     "blend_probe_fwd_pair2": dict(
-        source="gsdf_slam_tpu_torch/csrc/blend_probe.cu",
+        source="gsdf_slam_tpu_torch/csrc/blend_probe_pair2.cu",
         replaces="benchmarks/kernel_probe.py:995",
     ),
     "blend_probe_bwd": dict(
-        source="gsdf_slam_tpu_torch/csrc/blend_probe.cu",
+        source="gsdf_slam_tpu_torch/csrc/blend_probe_bwd.cu",
         replaces="benchmarks/kernel_probe.py:567",
     ),
     "expand_gather": dict(
@@ -168,6 +171,10 @@ EXPORT_LIVE_OPS = 4
 # of T and the 40 of dL/dalpha and the nine per-pair gradients (BWD_OPS in
 # all).
 BWD_OPS = 57
+# The probe backward takes log1p on every live pixel-pair of its walk
+# (EXPORT_LIVE_OPS), so on each applied one it adds the exp of T and the 40
+# of dL/dalpha and the nine gradients.
+PROBE_BWD_APPLIED_OPS = BWD_OPS - FWD_OPS - 1
 # RasterizeConfig's default cache_prune_margin, the mapper's setting
 MARGIN = 10.0
 # the cadence after densify_until_iter (engine/settings.py:97): one export
@@ -811,14 +818,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
     usage = kernels.ptxas_usage(kernels.build_info.get("log", ""))
-    for name in ("blend_fwd_kernel", "blend_fwd_export_kernel"):
+    for name in ("blend_fwd_kernel", "blend_fwd_export_kernel", "probe_fwd_kernel<Li4E>", "probe_fwd_pair2_kernel",
+                 "probe_bwd_kernel"):
         u = usage.get(name, {})
         log(f"[build] {name}: {u.get('registers')} registers, {u.get('spill_stores')} bytes spill stores, "
             f"{u.get('spill_loads')} bytes spill loads, {u.get('smem')} bytes smem "
             f"({65536 // (256 * u['registers']) if u.get('registers') else '?'} blocks of 256 threads an SM "
             f"by registers)")
     mismatches = checks.log1p_live_mismatches()
-    log(f"[build] K4's live-range log1p against log1pf, on every float32 alpha in [1/255, 0.99]: "
+    log(f"[build] the live-range log1p of K4 and the probes against log1pf, on every float32 alpha in [1/255, 0.99]: "
         f"{mismatches} bit mismatches")
     if mismatches:
         failed.append("K4-log1p-not-log1pf")
@@ -1039,17 +1047,30 @@ def main() -> int:
 
     gw, gh = st["gw"], st["gh"]
     _, _, raw, nd = blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit")
-    nd2 = blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh)[3]
-    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
-    # pixel-pairs of the chunks each tile walks (every pixel walks them all)
-    walked = {k: 256 * int(torch.minimum(v.to(torch.int64) * 128, counts).sum()) for k, v in
-              (("fwd", nd), ("pair2", nd2))}
-    log(f"[bound] probes at chunk 128: {walked['fwd']} pixel-pairs walked by chunk_exit, {walked['pair2']} "
-        f"by pair2")
-    # ranges, payload; accum, log_t_eff, log_t_raw, n_done
-    probe_fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix + 4 * num_tiles
     ct_pa, ct_pt = kernel_probe.cotangents(num_tiles, device)
     pb = (ranges, payload, nd, raw, ct_pa, ct_pt, gw, gh)
+    # The work the probes' functions need on this run's inputs, at chunk 128
+    # (ops/blend_probe.py::probe_walk_counts over chunk_exit's walk; the
+    # applied pixel-pairs from the backward's plain version, which the
+    # forward applies too): the offsets, exponent and live test on every
+    # walked pixel-pair; expf, the opacity product, the clamp and log1pf on
+    # the live ones; the backward's gradient math on the applied ones.
+    # Special functions: expf of the exponent on the live ones, expf of T on
+    # the applied ones and the backward's reciprocal there. pair2 is bounded
+    # on each tile's own chunk_exit walk: the chunks it walks past a tile's
+    # exit are not work its function needs.
+    walked_p, live_p = (int(x.sum()) for x in blend_probe.probe_walk_counts(ranges, payload, gw, nd))
+    applied_p = int(blend_probe.blend_probe_bwd_plain(*pb, with_applied=True)[1].sum())
+    nd2 = blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh)[3]
+    counts = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    pair2_walk = 256 * int(torch.minimum(nd2.to(torch.int64) * 128, counts).sum())
+    log(f"[bound] probes at chunk 128: chunk_exit walks {walked_p} pixel-pairs, {live_p} of them live, "
+        f"{applied_p} applied; pair2's lock step walks {pair2_walk} (x{pair2_walk / walked_p:.4f}); special "
+        f"functions at {sfu_rate:.4g}/s")
+    # ranges, payload; accum, log_t_eff, log_t_raw, n_done
+    probe_fwd_bytes = 8 * num_tiles + 36 * pairs_live + 20 * pix + 4 * num_tiles
+    probe_fwd_bound = bound_ms(probe_fwd_bytes, FWD_WALK_OPS * walked_p + EXPORT_LIVE_OPS * live_p,
+                               live_p + applied_p, sfu_rate)
     mp = EXPAND_MP
     p = max(mp // 3, 1000) // 128 * 128
     table, rank, g0, lr = (torch.from_numpy(a).to(device) for a in expand_probe.build(mp, p)[:4])
@@ -1060,14 +1081,16 @@ def main() -> int:
     probe_timings = {
         "blend_probe_fwd": (lambda: blend_probe.blend_probe_fwd(ranges, payload, gw, gh, "chunk_exit"),
                             lambda: blend_probe.blend_probe_fwd_plain(ranges, payload, gw, gh, "chunk_exit"),
-                            probe_err["fwd"], bound_ms(probe_fwd_bytes, FWD_OPS * walked["fwd"])),
+                            probe_err["fwd"], probe_fwd_bound),
         "blend_probe_fwd_pair2": (lambda: blend_probe.blend_probe_fwd_pair2(ranges, payload, gw, gh),
                                   lambda: blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, gw, gh),
-                                  probe_err["pair2"], bound_ms(probe_fwd_bytes, FWD_OPS * walked["pair2"])),
+                                  probe_err["pair2"], probe_fwd_bound),
         # ranges, payload, n_done, log_t_raw, both cotangents; grads [9, M]
         "blend_probe_bwd": (lambda: blend_probe.blend_probe_bwd(*pb),
                             lambda: blend_probe.blend_probe_bwd_plain(*pb), probe_err["bwd"],
-                            bound_ms(12 * num_tiles + 72 * pairs_live + 20 * pix, BWD_OPS * walked["fwd"])),
+                            bound_ms(12 * num_tiles + 72 * pairs_live + 20 * pix,
+                                     FWD_WALK_OPS * walked_p + EXPORT_LIVE_OPS * live_p
+                                     + PROBE_BWD_APPLIED_OPS * applied_p, live_p + 2 * applied_p, sfu_rate)),
     }
     for name, (kern, plain, err, bound) in probe_timings.items():
         time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles, chunk 128",

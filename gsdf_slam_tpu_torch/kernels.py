@@ -27,10 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-# the three blend probes share blend_probe.cu; the four pair-table kernels
-# pair_table.cu
+# blend_probe.cu holds blend_probe_fwd (six modes), the two other blend
+# probes a file each; the four pair-table kernels share pair_table.cu
 SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
-           "expand_gather.cu", "pair_table.cu")
+           "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (

@@ -27,14 +27,16 @@ ndone):
 - `unroll2` (`_fwd_kernel_unroll2`): production math, exit tested every
   second chunk, n_done = min(chunks walked in pairs, n_chunks).
 
-`blend_probe_fwd_pair2` (`_fwd_kernel_pair2`) walks tiles 2h and 2h+1 in
-lock step: each tile's outputs are `chunk_exit`'s, and both get the
-pair's common loop count as n_done. `blend_probe_bwd` (`_bwd_kernel_opt`)
-walks the chunks [0, n_done) back from the raw log T and returns per-pair
-gradients [9, M], summed over the tile's pixels and not folded per
-Gaussian. `expand_gather` (`make_expand`) is out[f, i] = table[f, rank[i]]
-for a nondecreasing rank given as a window start per 512-lane cell and an
-in-window rank.
+`blend_probe_fwd_pair2` (`_fwd_kernel_pair2`, kernel
+`csrc/blend_probe_pair2.cu`) walks tiles 2h and 2h+1 in lock step: each
+tile's outputs are `chunk_exit`'s, and both get the pair's common loop
+count as n_done. `blend_probe_bwd` (`_bwd_kernel_opt`, kernel
+`csrc/blend_probe_bwd.cu`) walks the chunks [0, n_done) back from the raw
+log T and returns per-pair gradients [9, M], summed over the tile's pixels
+and not folded per Gaussian. `probe_walk_counts` counts what a walk of
+chunks makes the probe kernels do, for their bounds. `expand_gather`
+(`make_expand`) is out[f, i] = table[f, rank[i]] for a nondecreasing rank
+given as a window start per 512-lane cell and an in-window rank.
 
 On a CPU tensor each wrapper takes its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -242,6 +244,25 @@ def blend_probe_bwd_plain(
             if with_applied:
                 n_applied[t] += applied.sum(1, dtype=torch.int32)
     return (grads, n_applied) if with_applied else grads
+
+
+def probe_walk_counts(ranges, payload, grid_w: int, n_done, chunk: int = 128):
+    """What walking each tile's first n_done chunks makes a probe kernel
+    do, per pixel [T, 256] int64: the pixel-pairs walked (every pixel walks
+    every pair of those chunks) and the live ones among them (power <= 0
+    and alpha >= 1/255). The applied ones are `blend_probe_bwd_plain(...,
+    with_applied=True)`'s count."""
+    _check_chunk(chunk)
+    count = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
+    nd = n_done.to(torch.int64)
+    walked = torch.minimum(nd * chunk, count)[:, None].expand(-1, PIX_PER_TILE).contiguous()
+    live = torch.zeros_like(walked)
+    for c in range(int(nd.max()) if nd.numel() else 0):
+        tiles = torch.nonzero(c < nd).squeeze(1)
+        for t in tiles.split(PLAIN_TILES):
+            alpha = _chunk_geometry(ranges, payload, t, c, chunk, grid_w)[3]
+            live[t] += (alpha > 0.0).sum(1)
+    return walked, live
 
 
 def _probe_outputs(num_tiles, dev):

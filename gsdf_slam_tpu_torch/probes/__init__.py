@@ -7,6 +7,6 @@
 
 The first three port `benchmarks/kernel_probe.py`,
 `benchmarks/expand_probe.py` and `benchmarks/microbench.py`; `tree_turns`
-times the blend kernels of other checkouts (the parent commit, a variant)
-in turns with this tree's.
+times the blend kernels and blend probes of other checkouts (the parent
+commit, a variant) in turns with this tree's.
 """

@@ -172,10 +172,11 @@ def keep_bytes(ranges, payload, grid_w, margin) -> torch.Tensor:
 
 
 def log1p_live_mismatches() -> int:
-    """The float32 alphas in [1/255, 0.99], every one, at which K4's
-    live-range log1p (csrc/blend_fwd_export.cu) differs in any bit from
-    the CUDA math library's log1pf(-alpha), which K1 calls: 0 keeps K4
-    bit-equal to K1. Needs the card."""
+    """The float32 alphas in [1/255, 0.99], every one, at which the
+    live-range log1p of K4 and the probe kernels (csrc/common.cuh) differs
+    in any bit from the CUDA math library's log1pf(-alpha), which K1 and
+    blend_probe_fwd call: 0 keeps K4 bit-equal to K1, and pair2 to
+    chunk_exit. Needs the card."""
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
     kernels.launch("gsdf_log1p_live_mismatches", out.data_ptr())
     return int(out.item())

@@ -9,7 +9,7 @@ also runs where jax is not installed:
 import pytest
 import torch
 from torch_port_helpers import (
-    EXPORT_BINNINGS, FOV, POSE, export_binning, scene_arrays, synthetic_binning, torch_args,
+    EXPORT_BINNINGS, FOV, POSE, export_binning, pair2_binning, scene_arrays, synthetic_binning, torch_args,
 )
 
 from gsdf_slam_tpu_torch import kernels
@@ -244,6 +244,64 @@ def test_probe_bwd_matches_plain(probe_binned, chunk):
     torch.cuda.synchronize()
     errs, failed = checks.bwd_check(got, again, want, checks.BWD_SMALL)
     assert not failed, errs
+
+
+def _direct_binning(name, dev):
+    """(ranges, payload, gid, Gaussian count, grid side) on the card: the
+    tiles of 1, 32, 33 and 300 pairs at two opacities (2x2), or a one-tile
+    binning of EXPORT_BINNINGS (600 faint pairs, whose walk crosses many
+    32-pair groups; 800 opaque ones, whose chunk exit fires)."""
+    if name in EXPORT_BINNINGS:
+        out, g = export_binning(name), 1
+    else:
+        out, g = synthetic_binning((1, 32, 33, 300), 2, **({} if name == "sparse" else dict(opacity=(0.5, 0.99)))), 2
+    ranges, payload, gid, p = out
+    return ranges.to(dev), payload.to(dev), gid.to(dev), p, g
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+@pytest.mark.parametrize("name", ["sparse", "dense", *EXPORT_BINNINGS])
+def test_probe_bwd_on_direct_binnings(dev, name, chunk):
+    """The pixel ring of blend_probe_bwd on walks of 1, 32, 33 and 300 pairs
+    (groups of one pair, a full group, a group and one pair, many groups)
+    and on one tile whose walk crosses many groups, at chunks that do not
+    line up with the 32-pair groups: within BWD_SMALL of the plain version,
+    two launches bit-equal, and folded per Gaussian within K2's bar of K2."""
+    ranges, payload, gid, p, g = _direct_binning(name, dev)
+    _, _, raw, nd = blend_probe.blend_probe_fwd_plain(ranges, payload, g, g, "chunk_exit", chunk)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ct_a = torch.randn(raw.shape + (3,), generator=gen, device=dev)
+    ct_t = torch.randn(raw.shape, generator=gen, device=dev)
+    a = (ranges, payload, nd, raw, ct_a, ct_t, g, g, chunk)
+    got = blend_probe.blend_probe_bwd(*a)
+    again = blend_probe.blend_probe_bwd(*a)
+    want = blend_probe.blend_probe_bwd_plain(*a)
+    acc, _, nc, ckpt = blend.blend_fwd_plain(ranges, payload, g, g)
+    k2 = tile_blend.blend_bwd(ranges, payload, gid, acc, nc, ckpt, ct_a, ct_t, p, g, g)
+    folded = torch.zeros_like(k2).index_add_(0, gid.to(torch.int64), got.t())
+    torch.cuda.synchronize()
+    errs, failed = checks.bwd_check(got, again, want, checks.BWD_SMALL)
+    assert not failed, errs
+    fold = checks.scaled_errors(folded.t(), k2.t())
+    assert all(e <= checks.BWD_SMALL for e in fold.values()), fold
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_probe_pair2_odd_row_one_tile_exits_first(dev, chunk):
+    """pair2 on three tiles: a pair whose first tile exits chunks before its
+    partner, and a last tile with no partner; bit-equal to the chunk_exit
+    kernel with the pair's n_done, and within FWD_SMALL of the plain
+    version."""
+    ranges, payload = (x.to(dev) for x in pair2_binning())
+    got = blend_probe.blend_probe_fwd_pair2(ranges, payload, 3, 1, chunk)
+    want = blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, 3, 1, chunk)
+    single = blend_probe.blend_probe_fwd(ranges, payload, 3, 1, "chunk_exit", chunk)
+    torch.cuda.synchronize()
+    errs, failed = checks.pair2_check(got, want, single, payload, ranges, checks.FWD_SMALL)
+    assert not failed, errs
+    nd = single[3].tolist()
+    assert nd[0] < nd[1]
+    assert got[3].tolist() == [nd[1], nd[1], nd[2]]
 
 
 def test_expand_gather_bit_equal(dev):

@@ -26,7 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import assert_scaled_close, jax_args, jax_camera, scene_arrays
+from torch_port_helpers import (
+    EXPORT_BINNINGS, assert_scaled_close, export_binning, jax_args, jax_camera, pair2_binning, scene_arrays,
+)
 
 from gsdf_slam_tpu.ops import CameraMatrices as JCam
 from gsdf_slam_tpu.ops import projection as jproj
@@ -320,3 +322,67 @@ def test_bwd_opt_folded_matches_k2(scene, chunk):
     folded = torch.zeros_like(k2).index_add_(0, gid.to(torch.int64), pair.t())
     for name, rows in FIELDS.items():
         assert_scaled_close(k2[:, rows].numpy(), folded[:, rows].numpy(), GRAD_BAR, name)
+
+
+def _brute_probe_walk(ranges, payload, grid_w, n_done, chunk):
+    """Every pixel walks its tile's first n_done chunks pair by pair, in
+    float64: walked and live pixel-pairs per pixel [T, 256]."""
+    r = ranges.numpy()
+    pl = payload.numpy().astype(np.float64)
+    pix = np.arange(256)
+    walked = np.zeros((len(r), 256), np.int64)
+    live_n = np.zeros_like(walked)
+    for t, (s, e) in enumerate(r):
+        x = (t % grid_w) * 16 + pix % 16
+        y = (t // grid_w) * 16 + pix // 16
+        for i in range(s, min(e, s + int(n_done[t]) * chunk)):
+            mx, my, a, b, c, op = pl[:6, i]
+            dx, dy = mx - x, my - y
+            power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+            alpha = np.minimum(blend.ALPHA_MAX, op * np.exp(power))
+            walked[t] += 1
+            live_n[t] += (power <= 0.0) & (alpha >= blend.ALPHA_MIN)
+    return walked, live_n
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+@pytest.mark.parametrize("scene", ["render", "wall", *EXPORT_BINNINGS])
+def test_probe_walk_counts_match_brute_force(scene, chunk):
+    """`probe_walk_counts` over chunk_exit's walk against a walk of every
+    pixel, pair by pair; the applied pixel-pairs of the backward are a part
+    of the live ones."""
+    if scene in EXPORT_BINNINGS:
+        ranges, payload, _, _ = export_binning(scene)
+        g = 1
+    else:
+        b = _binned(scene, chunk)
+        ranges, payload, g = b["ranges"], b["payload"], b["gw"]
+    _, _, raw, nd = blend_probe.blend_probe_fwd_plain(ranges, payload, g, g, "chunk_exit", chunk)
+    walked, live_n = blend_probe.probe_walk_counts(ranges, payload, g, nd, chunk)
+    want_walked, want_live = _brute_probe_walk(ranges, payload, g, nd.numpy(), chunk)
+    np.testing.assert_array_equal(walked.numpy(), want_walked)
+    np.testing.assert_array_equal(live_n.numpy(), want_live)
+    ct_a = torch.zeros(raw.shape + (3,))
+    _, applied = blend_probe.blend_probe_bwd_plain(ranges, payload, nd, raw, ct_a, torch.zeros_like(raw), g, g,
+                                                   chunk, with_applied=True)
+    assert int(applied.sum()) > 0 and (applied <= live_n).all() and (live_n <= walked).all()
+    count = (ranges[:, 1] - ranges[:, 0]).numpy()
+    if (scene, chunk) in (("wall", 16), ("early_exit", 16), ("early_exit", 128)):
+        # the chunk exit cuts some tile's walk short
+        assert (want_walked[:, 0] < count).any()
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_pair2_binning_exits_one_tile_first(chunk):
+    """The card test's binning for pair2 (torch_port_helpers.pair2_binning):
+    the pair's first tile exits chunks before its partner and the lone last
+    tile keeps its own n_done, in the plain versions."""
+    ranges, payload = pair2_binning()
+    single = blend_probe.blend_probe_fwd_plain(ranges, payload, 3, 1, "chunk_exit", chunk)
+    got = blend_probe.blend_probe_fwd_pair2_plain(ranges, payload, 3, 1, chunk)
+    for g, s in zip(got[:3], single[:3]):
+        assert torch.equal(g, s)
+    nd = single[3].tolist()
+    count = (ranges[:, 1] - ranges[:, 0]).tolist()
+    assert nd[0] < nd[1] and nd[0] < -(-count[0] // chunk)
+    assert got[3].tolist() == [nd[1], nd[1], nd[2]]

@@ -119,3 +119,21 @@ def export_binning(name):
     """synthetic_binning of an EXPORT_BINNINGS entry, on a 1x1 tile grid."""
     kw = dict(EXPORT_BINNINGS[name])
     return synthetic_binning(kw.pop("counts"), 1, **kw)
+
+
+def pair2_binning():
+    """Three one-tile binnings side by side on a 3x1 tile grid, for the lock
+    step of blend_probe_fwd_pair2: tile 0 is EXPORT_BINNINGS' `early_exit`
+    (every pixel done within a few dozen pairs, so its chunk exit fires
+    first), tile 1 `switch` (its partner, which walks on after tile 0 is
+    done) and tile 2 a lone tile of 33 pairs, which has no partner. Returns
+    ranges [3, 2] int32 and payload [9, M] float32."""
+    parts = [export_binning("early_exit"), export_binning("switch"), synthetic_binning((33,), 1, seed=3)]
+    ranges, payloads, n = [], [], 0
+    for t, (_, pl, _, _) in enumerate(parts):
+        pl = pl.clone()
+        pl[0] += 16 * t  # into tile t of the row
+        ranges.append([n, n + pl.shape[1]])
+        payloads.append(pl)
+        n += pl.shape[1]
+    return torch.tensor(ranges, dtype=torch.int32), torch.cat(payloads, 1)
