@@ -7,9 +7,10 @@ Phases, each printing its own lines:
 
 1. device: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: compile the CUDA kernels from gsdf_slam_tpu_torch/csrc/, with
-   the registers and spills of K1, K4 and the blend probes (chunk_exit,
-   pair2, the backward), and the live-range log1p of K4 and the probes
-   against log1pf on every float32 alpha in [1/255, 0.99];
+   the registers and spills of K1, K4, the blend probes (the six modes of
+   blend_probe_fwd, one template on one skeleton; pair2; the backward) and
+   the single-pass xpose_cumsum, and the live-range log1p of K4 and the
+   probes against log1pf on every float32 alpha in [1/255, 0.99];
 3. kernel checks: each kernel (K3 tile_ranges_pack, K1 blend_fwd, K2
    blend_bwd, K4 blend_fwd_export) against its plain PyTorch version on the
    card, on the small test scene (64x64), the opaque wall (32x32) and the
@@ -818,8 +819,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
     usage = kernels.ptxas_usage(kernels.build_info.get("log", ""))
-    for name in ("blend_fwd_kernel", "blend_fwd_export_kernel", "probe_fwd_kernel<Li4E>", "probe_fwd_pair2_kernel",
-                 "probe_bwd_kernel"):
+    # probe_fwd_kernel<Li{mode}E>: blend_probe_fwd's modes in FWD_MODES order
+    probe_fwd = [f"probe_fwd_kernel<Li{i}E>" for i in range(len(blend_probe.FWD_MODES))]
+    for name in ("blend_fwd_kernel", "blend_fwd_export_kernel", *probe_fwd, "probe_fwd_pair2_kernel",
+                 "probe_bwd_kernel", "xpose_cumsum_kernel"):
         u = usage.get(name, {})
         log(f"[build] {name}: {u.get('registers')} registers, {u.get('spill_stores')} bytes spill stores, "
             f"{u.get('spill_loads')} bytes spill loads, {u.get('smem')} bytes smem "

@@ -9,21 +9,43 @@
 //
 // Layout, as K1 (blend_fwd.cu): one 256-thread block per tile, one thread per
 // pixel. The tile's depth-sorted pairs are walked in chunks of `chunk` (at
-// most kMaxChunk) pairs, each staged in shared memory field-major, one pair
-// loaded per thread so the loads coalesce. Each pixel carries its raw log T
-// (every live pair) and applies a pair while its inclusive raw log T is still
-// >= log(1e-4) (PARITY.md D9). Where the mode has an exit, the block tests it
-// once per chunk, as the TPU's `cond` does: __syncthreads_or of
-// log_raw >= log(1e-4) over the tile's 256 pixels, edge pixels outside the
-// image included, so log_t_raw and n_done (the chunks walked) are the TPU's.
-// Products and sums follow the plain versions' order (ops/blend_probe.py); the
-// library is built with --fmad=false.
+// most kMaxChunk) pairs. Each pixel carries its raw log T (every live pair)
+// and applies a pair while its inclusive raw log T is still >= log(1e-4)
+// (PARITY.md D9). Where the mode has an exit, the block tests it at a chunk
+// boundary, as the TPU's `cond` does: the OR of log_raw >= log(1e-4) over the
+// tile's 256 pixels, edge pixels outside the image included, so log_t_raw and
+// n_done (the chunks walked) are the TPU's. Products and sums follow the
+// plain versions' order (ops/blend_probe.py); the library is built with
+// --fmad=false.
+//
+// All six modes run one skeleton, the one K1, K4 and blend_probe_fwd_pair2
+// run, and differ only in the per-pair math (unroll2 also in its ring depth
+// and exit cadence), so each mode's time against chunk_exit's isolates what
+// the mode strips from the kernels the port ships:
+// - the chunk is staged pair-major, 12 words a pair (kStagedWords): thread
+//   t copies pair t by cp.async and, once its copy is in, writes the pair's
+//   live threshold (common.cuh) into word 9; a pixel reads a pair with three
+//   16-byte broadcast loads from a row pointer set once a chunk, and a
+//   pixel-pair whose power is below the threshold skips expf and the rest
+//   (exact: such a pair is dead);
+// - one barrier a chunk: it makes the staged chunk and its thresholds
+//   visible, frees the slot the next copy fills and, in the exit modes,
+//   carries the vote: each warp ORs its pixels' bits (__reduce_or_sync),
+//   lane 0 parks the result in a word of shared memory, double buffered so
+//   a fast warp's next vote cannot overwrite a word a slow warp still reads,
+//   and after the barrier every thread ORs the 8 words;
+// - chunk c + kRing - 1 is copied into the slot of chunk c - 1 as soon as
+//   chunk c's vote is in, and lands while chunk c is walked; kRing is 2 (a
+//   double buffer), 4 for unroll2;
+// - log1p is log1p_live (common.cuh), bit-equal to log1pf on every live
+//   alpha, so every output is the former field-major kernel's bit for bit.
 //
 // Modes of blend_probe_fwd (TPU body, what it isolates on this card):
-//   floor      _fwd_kernel_floor: staging, barriers and loop, no pair math;
-//              log_t_eff = sum over chunks of 1e-30 * sum of mean x, accum
-//              and log_t_raw 0, every chunk walked (the TPU writes its sum
-//              into teff and zeros into traw, kernel_probe.py:620-621).
+//   floor      _fwd_kernel_floor: staging, thresholds, barrier and loop, no
+//              pair math; log_t_eff = sum over chunks of 1e-30 * sum of mean
+//              x (word 0 of each staged row), accum and log_t_raw 0, every
+//              chunk walked (the TPU writes its sum into teff and zeros into
+//              traw, kernel_probe.py:620-621).
 //   nocarry    _fwd_kernel_variant("nomxu"): alpha and both expf kept, the
 //              carry replaced by incl = 0.5 l1m, carry = 0.25 l1m; accum
 //              gets sum w col0 on all three channels. The serial carry's cost.
@@ -34,11 +56,11 @@
 //   chunk_exit _fwd_kernel_opt / _fwd_kernel_roll: production math with the
 //              chunk-granular exit. Against K1: per-chunk against per-pixel
 //              exit.
-//   unroll2    _fwd_kernel_unroll2 (nbuf=4): production math, two chunks per
-//              iteration, exit tested every second chunk; a 4-deep cp.async
-//              ring keeps two batches in flight. n_done = min(c_done,
-//              n_chunks). Unlike the TPU body, it never reads a slot that no
-//              copy filled: a second chunk past the tile's end is skipped.
+//   unroll2    _fwd_kernel_unroll2 (nbuf=4): production math, exit tested
+//              every second chunk, a 4-slot ring with three chunks in
+//              flight. n_done = min(c_done, n_chunks). Unlike the TPU body,
+//              it never reads a slot that no copy filled: the walk stops at
+//              the tile's last chunk.
 //
 // Bound: as K1, the per-pair arithmetic and transcendentals of a serial walk
 // (K1's per-pixel exit is replaced by the walk of whole chunks, so pixels past
@@ -51,7 +73,8 @@ namespace {
 using namespace gsdf;
 
 constexpr int kMaxChunk = 128;
-constexpr int kRing = 4;  // unroll2: chunks in flight in shared memory
+constexpr int kWarps = kPix / 32;
+constexpr int kStaged = kStagedWords / 4;  // float4 words of a staged pair
 constexpr float kFloorScale = 1e-30f;
 
 enum Mode : int { kFloor = 0, kNoCarry = 1, kNoTrans = 2, kNoExit = 3, kChunkExit = 4, kUnroll2 = 5 };
@@ -60,71 +83,46 @@ struct Pix {
   float log_raw, log_eff, c0, c1, c2;
 };
 
-using Chunk = float[kRows][kMaxChunk];
-
-// cp_async4 and cp_async_commit: common.cuh
+// cp.async.wait_group: at most kPending of this thread's commit groups pending
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-__device__ __forceinline__ void stage(Chunk& s, const float* __restrict__ payload, long long m,
-                                      int b0, int nb, int tid) {
-  if (tid < nb) {
-#pragma unroll
-    for (int f = 0; f < kRows; ++f) s[f][tid] = payload[f * m + b0 + tid];
-  }
-}
-
-// One pair k of the staged chunk for one pixel, under the mode's math.
+// One staged pair (mx my a b | c op r g | b thr - -) for one pixel, under
+// the mode's math.
 template <int kMode>
-__device__ __forceinline__ void pair_step(const Chunk& s, int k, float px, float py, Pix& p) {
-  const PairGeom q = pair_geom(s[0][k], s[1][k], s[2][k], s[3][k], s[4][k], s[5][k], px, py);
+__device__ __forceinline__ void pair_step(const float4* row, float px, float py, Pix& p) {
+  const float4 u = row[0];
+  const float4 v = row[1];
+  const float4 w3 = row[2];
+  PairGeom q = pair_power(u.x, u.y, u.z, u.w, v.x, px, py);
+  if (q.power < w3.y) return;  // certainly dead
+  pair_alpha(q, v.y);
   if (!is_live(q)) return;  // alpha 0: log1p(-0) = 0 and a zero weight change nothing
   if constexpr (kMode == kNoCarry) {
-    const float l1m = log1pf(-q.alpha);
+    const float l1m = log1p_live(q.alpha);
     const float incl = l1m * 0.5f;
     const float carry = l1m * 0.25f;
     const float t_excl = expf(carry + (incl - l1m));
     const bool applied = (carry + incl) >= kLogTEps;
     const float w = applied ? q.alpha * t_excl : 0.0f;
-    p.c0 = p.c0 + w * s[6][k];
+    p.c0 = p.c0 + w * v.z;
     p.log_eff = p.log_eff + (applied ? l1m : 0.0f);
     p.log_raw = p.log_raw + l1m;
   } else {
-    const float l1m = kMode == kNoTrans ? -q.alpha : log1pf(-q.alpha);
+    const float l1m = kMode == kNoTrans ? -q.alpha : log1p_live(q.alpha);
     const float incl = p.log_raw + l1m;
     if (incl >= kLogTEps) {
       const float t_excl = kMode == kNoTrans ? p.log_raw : expf(p.log_raw);
       const float w = q.alpha * t_excl;
-      p.c0 = p.c0 + w * s[6][k];
-      p.c1 = p.c1 + w * s[7][k];
-      p.c2 = p.c2 + w * s[8][k];
+      p.c0 = p.c0 + w * v.z;
+      p.c1 = p.c1 + w * v.w;
+      p.c2 = p.c2 + w * w3.x;
       p.log_eff = incl;
     }
     p.log_raw = incl;
   }
-}
-
-template <int kMode>
-__device__ __forceinline__ void apply_chunk(const Chunk& s, int nb, float px, float py, Pix& p) {
-  if constexpr (kMode == kFloor) {
-    float sum = 0.0f;
-    for (int k = 0; k < nb; ++k) sum = sum + s[0][k];
-    p.log_eff = p.log_eff + sum * kFloorScale;
-  } else {
-    for (int k = 0; k < nb; ++k) pair_step<kMode>(s, k, px, py, p);
-  }
-}
-
-__device__ __forceinline__ void write_pixel(const Pix& p, bool one_channel, long long pix,
-                                            float* __restrict__ accum, float* __restrict__ log_t_eff,
-                                            float* __restrict__ log_t_raw) {
-  accum[3 * pix + 0] = p.c0;
-  accum[3 * pix + 1] = one_channel ? p.c0 : p.c1;
-  accum[3 * pix + 2] = one_channel ? p.c0 : p.c2;
-  log_t_eff[pix] = p.log_eff;
-  log_t_raw[pix] = p.log_raw;
 }
 
 template <int kMode>
@@ -135,80 +133,81 @@ __global__ void __launch_bounds__(kPix) probe_fwd_kernel(const int* __restrict__
                                                         float* __restrict__ log_t_eff,
                                                         float* __restrict__ log_t_raw,
                                                         int* __restrict__ n_done) {
-  constexpr bool kExits = kMode == kNoCarry || kMode == kNoTrans || kMode == kChunkExit;
-  __shared__ Chunk s;
+  constexpr bool kExits = kMode != kFloor && kMode != kNoExit;
+  constexpr int kRing = kMode == kUnroll2 ? 4 : 2;   // slots of staged chunks
+  constexpr int kEvery = kMode == kUnroll2 ? 2 : 1;  // chunks per exit test
+  // s[slot][pair of the chunk]
+  __shared__ float4 s[kRing][kMaxChunk][kStaged];
+  // votes[test & 1][warp]: some pixel of the warp still has raw log T >= log(1e-4)
+  __shared__ unsigned votes[2][kWarps];
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = ranges[2 * tile];
   const int end = ranges[2 * tile + 1];
   const int n_chunks = (end - start + chunk - 1) / chunk;
   const float px = (float)((tile % grid_w) * kTile + (tid % kTile));
   const float py = (float)((tile / grid_w) * kTile + (tid / kTile));
-  Pix p = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  int c = 0;
-  for (; c < n_chunks; ++c) {
-    // the barrier also keeps the previous chunk until every thread is past it
-    if constexpr (kExits) {
-      if (!__syncthreads_or(p.log_raw >= kLogTEps)) break;
-    } else {
-      __syncthreads();
-    }
-    const int b0 = start + c * chunk;
-    const int nb = min(chunk, end - b0);
-    stage(s, payload, m, b0, nb, tid);
-    __syncthreads();
-    apply_chunk<kMode>(s, nb, px, py, p);
-  }
-  write_pixel(p, kMode == kNoCarry, (long long)tile * kPix + tid, accum, log_t_eff, log_t_raw);
-  if (tid == 0) n_done[tile] = c;
-}
-
-__global__ void __launch_bounds__(kPix) probe_fwd_unroll2_kernel(
-    const int* __restrict__ ranges, const float* __restrict__ payload, long long m, int grid_w,
-    int chunk, float* __restrict__ accum, float* __restrict__ log_t_eff,
-    float* __restrict__ log_t_raw, int* __restrict__ n_done) {
-  __shared__ Chunk s[kRing];
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int start = ranges[2 * tile];
-  const int end = ranges[2 * tile + 1];
-  const int n_chunks = (end - start + chunk - 1) / chunk;
-  const float px = (float)((tile % grid_w) * kTile + (tid % kTile));
-  const float py = (float)((tile / grid_w) * kTile + (tid / kTile));
-  // One commit group per chunk index, in order, empty past the tile's end:
-  // when chunk c is consumed, groups 0 .. c + kRing - 1 are committed, so
-  // waiting until at most kRing - 1 are pending completes chunk c's.
+  // chunk cc into slot cc % kRing by cp.async, thread tid copying pair tid;
+  // one commit group per call, empty past the tile's end
   auto issue = [&](int cc) {
-    if (cc < n_chunks) {
-      const int b0 = start + cc * chunk;
-      if (tid < min(chunk, end - b0)) {
+    const int j = start + cc * chunk + tid;
+    if (tid < chunk && j < end) {
+      float* dst = reinterpret_cast<float*>(s[cc % kRing][tid]);
 #pragma unroll
-        for (int f = 0; f < kRows; ++f) cp_async4(&s[cc % kRing][f][tid], payload + f * m + b0 + tid);
-      }
+      for (int f = 0; f < kRows; ++f) cp_async4(dst + f, payload + f * m + j);
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int k = 0; k < kRing; ++k) issue(k);
+  for (int k = 0; k < kRing - 1; ++k) issue(k);
   Pix p = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  int c0 = 0;
-  while (c0 < n_chunks && __syncthreads_or(p.log_raw >= kLogTEps)) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int cc = c0 + h;
-      if (cc < n_chunks) {
-        cp_async_wait<kRing - 1>();
-        __syncthreads();
-        apply_chunk<kChunkExit>(s[cc % kRing], min(chunk, end - (start + cc * chunk)), px, py, p);
-        __syncthreads();  // every thread is done with the slot before it is refilled
-      }
-      issue(cc + kRing);
+  int c = 0;
+  for (; c < n_chunks; ++c) {
+    const int slot = c % kRing;
+    // groups 0 .. c + kRing - 2 are committed: at most kRing - 2 pending
+    // leaves this thread's copy of chunk c complete
+    cp_async_wait<kRing - 2>();
+    if (tid < chunk && start + c * chunk + tid < end) {
+      float* own = reinterpret_cast<float*>(s[slot][tid]);
+      own[kRows] = live_threshold(own[5]);
     }
-    c0 += 2;
+    const bool test = kExits && c % kEvery == 0;
+    const int vb = (c / kEvery) & 1;
+    if (test) {
+      const unsigned warp_any = __reduce_or_sync(0xffffffffu, p.log_raw >= kLogTEps ? 1u : 0u);
+      if (lane == 0) votes[vb][warp] = warp_any;
+    }
+    // the one barrier of the chunk: it is staged and visible, the votes are
+    // in, and every thread is past chunk c - 1, whose slot the next copy fills
+    __syncthreads();
+    if (test) {
+      unsigned any = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) any |= votes[vb][w];
+      if (!any) break;
+    }
+    issue(c + kRing - 1);
+    const int nb = min(chunk, end - (start + c * chunk));
+    // the chunk's rows, addressed once a chunk
+    const float4* row = s[slot][0];
+    if constexpr (kMode == kFloor) {
+      float sum = 0.0f;
+      for (int k = 0; k < nb; ++k, row += kStaged) sum = sum + row->x;
+      p.log_eff = p.log_eff + sum * kFloorScale;
+    } else {
+      for (int k = 0; k < nb; ++k, row += kStaged) pair_step<kMode>(row, px, py, p);
+    }
   }
-  cp_async_wait<0>();
-  write_pixel(p, false, (long long)tile * kPix + tid, accum, log_t_eff, log_t_raw);
-  if (tid == 0) n_done[tile] = min(c0, n_chunks);
+  cp_async_wait<0>();  // unroll2 may leave copies of later chunks in flight
+  const long long pix = (long long)tile * kPix + tid;
+  accum[3 * pix + 0] = p.c0;
+  accum[3 * pix + 1] = kMode == kNoCarry ? p.c0 : p.c1;
+  accum[3 * pix + 2] = kMode == kNoCarry ? p.c0 : p.c2;
+  log_t_eff[pix] = p.log_eff;
+  log_t_raw[pix] = p.log_raw;
+  if (tid == 0) n_done[tile] = c;
 }
 
 }  // namespace
@@ -242,7 +241,7 @@ extern "C" int gsdf_blend_probe_fwd(const void* ranges, const void* payload, lon
       probe_fwd_kernel<kChunkExit><<<num_tiles, kPix, 0, cs>>>(r, pl, m, grid_w, chunk, a, e, w, nd);
       break;
     case kUnroll2:
-      probe_fwd_unroll2_kernel<<<num_tiles, kPix, 0, cs>>>(r, pl, m, grid_w, chunk, a, e, w, nd);
+      probe_fwd_kernel<kUnroll2><<<num_tiles, kPix, 0, cs>>>(r, pl, m, grid_w, chunk, a, e, w, nd);
       break;
     default:
       return (int)cudaErrorInvalidValue;

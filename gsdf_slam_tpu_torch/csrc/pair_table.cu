@@ -39,17 +39,34 @@
 //
 // xpose_cumsum replaces bench_expand_xpose_cumsum_pallas (:804, body
 // _xpose_cumsum_kernel :775), which transposes 512-lane blocks and carries
-// the running sum in VMEM across a sequential grid. Blocks here run in no
-// order, so the carry is a scan across blocks in three launches: (1) each
-// 512-lane block's 16 field totals, (2) one block turns the totals into
-// exclusive block offsets, (3) each block stages its [512, 16] tile
-// transposed in shared memory (rows padded by 2 words, so the transposing
-// stores hit 32 banks), scans each field row by warp shuffles from its
-// offset and writes [16, MP] rows coalesced. Addition modulo 2^32 is
-// associative, so the order of the sums changes nothing. The input is read
-// twice (1.5x the bound's bytes); a single pass with a decoupled look-back
-// would read it once.
+// the running sum in VMEM across a sequential grid. The card has no
+// sequential grid, so the carry crosses blocks by a decoupled look-back
+// (Merrill and Garland's single-pass prefix scan), in one launch after the
+// scratch is zeroed, reading the input once:
+// - a block takes its tile (kXBlk lanes) from an atomic ticket, not from
+//   blockIdx.x, so it only ever waits on tiles whose blocks are running;
+// - it loads the [kXBlk, 16] tile with 16-byte loads into shared memory,
+//   transposed, each row padded with one word after every 32-lane run and
+//   two at its end (stride 1058 = 2 mod 8, so a warp's transposing stores,
+//   its raking reads and its row reads each hit 32 banks);
+// - warp f scans field row f: lane l sums the run of lanes 32l .. 32l + 31,
+//   one shuffle scan over the warp gives each run's offset and the tile's
+//   aggregate;
+// - lane 0 publishes the field's aggregate; the warp then looks back over
+//   the predecessors' status words, a window of 32 at a time, summing
+//   aggregates until an inclusive prefix appears, and lane 0 publishes the
+//   tile's inclusive prefix;
+//   flag and value share one 64-bit word (flag high, value low), written
+//   by one atomic exchange, so a reader never sees a flag without its
+//   value and no fence is needed (the value depends on no other store);
+// - each lane rewrites its run as the inclusive sums from its offset, and
+//   the block writes [16, MP] rows in 16-byte streaming stores (scalar
+//   where a row is not 16-byte aligned), the last partial tile masked.
+// Addition modulo 2^32 is associative, so the order of the sums changes
+// nothing: the output is the plain version's bit for bit.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -57,9 +74,19 @@ constexpr int kFields = 16;
 constexpr int kChunk = 128;
 constexpr int kRealignThreads = 256;  // 16 rows x 32 four-lane columns, two rows a thread
 constexpr int kGatherThreads = 256;
-constexpr int kXBlk = 512;  // lanes per xpose_cumsum block
-constexpr int kXThreads = 256;
-constexpr int kXPad = 2;  // row stride kXBlk + 2 = 2 mod 8: the 4 field groups x 8 lanes of a warp's stores hit 32 banks
+// xpose_cumsum: lanes per tile (ops/pair_table.py XPOSE_BLOCK is a copy,
+// tied to this one by tests/test_torch_microbench.py), one warp per field
+// row, each lane raking a run of kXRun lanes
+constexpr int kXBlk = 1024;
+constexpr int kXThreads = 32 * kFields;
+constexpr int kXRun = kXBlk / 32;
+// padded row: a word after each run, 2 more; 1058 = 2 mod 8, so the 4 field
+// groups x 8 lanes of a warp's transposing stores hit 32 banks
+constexpr int kXRow = kXBlk + kXBlk / kXRun + 2;
+constexpr int kXSmem = kFields * kXRow * 4;
+// status word flags (high half; the value is the low half)
+constexpr unsigned long long kXAggregate = 1ull << 32;  // the tile's own sum
+constexpr unsigned long long kXInclusive = 2ull << 32;  // the sum through the tile
 
 __global__ void __launch_bounds__(kRealignThreads) realign_kernel(const int* __restrict__ tbl, int ng,
                                                                   const unsigned* __restrict__ src,
@@ -125,107 +152,102 @@ __global__ void __launch_bounds__(kGatherThreads) window_gather_kernel(
   }
 }
 
-// (1) totals[b, f] = sum of x[lane, f] over block b's lanes. Thread t reads
-// 16-byte words t + 256 k of the block's tile: always the fields 4 (t & 3)
-// .. 4 (t & 3) + 3 of some lane.
-__global__ void __launch_bounds__(kXThreads) xpose_totals_kernel(const uint4* __restrict__ x, long long mp,
-                                                                 unsigned* __restrict__ totals) {
-  __shared__ unsigned part[kXThreads / 32][kFields];
-  const long long base = (long long)blockIdx.x * kXBlk;
-  const int t = threadIdx.x;
-  uint4 s = make_uint4(0u, 0u, 0u, 0u);
+// where lane `lane` of a tile sits in its padded shared-memory row
+__device__ __forceinline__ int xslot(int lane) { return lane + lane / kXRun; }
+
+// The sum of one field over tiles 0 .. tile - 1, by one warp, from the
+// field's status words: lane l reads predecessor tile - 1 - l of a window
+// that moves back 32 tiles at a time until it holds an inclusive prefix
+// (before tile 0, a virtual inclusive 0); a window with an unpublished word
+// before its nearest inclusive prefix is read again.
+__device__ __forceinline__ unsigned xpose_look_back(const unsigned long long* st, int tile, int l) {
+  unsigned excl = 0;
+  for (int pred = tile - 1;;) {
+    const int i = pred - l;
+    const unsigned long long w = i >= 0 ? *(volatile const unsigned long long*)(st + i) : kXInclusive;
+    const unsigned flag = (unsigned)(w >> 32);
+    const unsigned inc = __ballot_sync(0xffffffffu, flag == (unsigned)(kXInclusive >> 32));
+    // the lanes up to the nearest inclusive prefix, all if there is none
+    const unsigned upto = inc ? inc ^ (inc - 1) : 0xffffffffu;
+    if (__ballot_sync(0xffffffffu, flag == 0u) & upto) continue;
+    unsigned v = (upto >> l) & 1u ? (unsigned)w : 0u;
 #pragma unroll
-  for (int k = 0; k < kXBlk * 4 / kXThreads; ++k) {
-    const int q = t + k * kXThreads;
-    if (base + (q >> 2) < mp) {
-      const uint4 v = x[base * 4 + q];
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
-    }
-  }
-  for (int o = 4; o < 32; o <<= 1) {
-    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
-    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
-    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
-    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
-  }
-  const int w = t >> 5, l = t & 31;
-  if (l < 4) {
-    part[w][4 * l] = s.x;
-    part[w][4 * l + 1] = s.y;
-    part[w][4 * l + 2] = s.z;
-    part[w][4 * l + 3] = s.w;
-  }
-  __syncthreads();
-  if (t < kFields) {
-    unsigned sum = 0u;
-    for (int k = 0; k < kXThreads / 32; ++k) sum += part[k][t];
-    totals[blockIdx.x * kFields + t] = sum;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (inc) return excl;
+    pred -= 32;
   }
 }
 
-// (2) totals -> exclusive block offsets, in place: thread t sums field
-// t & 15 over segment t >> 4 of the blocks, then rewrites the segment.
-constexpr int kScanThreads = 512;
-constexpr int kSegments = kScanThreads / kFields;
-
-__global__ void __launch_bounds__(kScanThreads) xpose_scan_totals_kernel(unsigned* __restrict__ totals,
-                                                                         long long nb) {
-  __shared__ unsigned seg[kSegments][kFields];
-  const int f = threadIdx.x & (kFields - 1);
-  const int sg = threadIdx.x / kFields;
-  const long long per = (nb + kSegments - 1) / kSegments;
-  const long long lo = sg * per;
-  const long long hi = lo + per < nb ? lo + per : nb;
-  unsigned sum = 0u;
-  for (long long b = lo; b < hi; ++b) sum += totals[b * kFields + f];
-  seg[sg][f] = sum;
-  __syncthreads();
-  unsigned run = 0u;
-  for (int k = 0; k < sg; ++k) run += seg[k][f];
-  for (long long b = lo; b < hi; ++b) {
-    const unsigned v = totals[b * kFields + f];
-    totals[b * kFields + f] = run;
-    run += v;
-  }
-}
-
-// (3) each block's tile transposed into shared memory, each field row
-// scanned by one warp from the block's offset, written as [16, MP].
-__global__ void __launch_bounds__(kXThreads) xpose_cumsum_kernel(const uint4* __restrict__ x, long long mp,
-                                                                 const unsigned* __restrict__ offsets,
-                                                                 unsigned* __restrict__ out) {
-  __shared__ unsigned tile[kFields][kXBlk + kXPad];
-  const long long base = (long long)blockIdx.x * kXBlk;
+// out [16, MP] = inclusive cumsum of x [MP, 16] along MP, one tile a block
+// in ticket order; status [16, nt] and the ticket zeroed before the launch.
+__global__ void __launch_bounds__(kXThreads, 3) xpose_cumsum_kernel(const uint4* __restrict__ x, long long mp,
+                                                                    int nt, unsigned long long* __restrict__ status,
+                                                                    unsigned* __restrict__ ticket, bool vec,
+                                                                    unsigned* __restrict__ out) {
+  extern __shared__ unsigned rows[];  // [kFields][kXRow]
+  __shared__ int tile_of_block;
   const int t = threadIdx.x;
-#pragma unroll
+  if (t == 0) tile_of_block = (int)atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int tile = tile_of_block;
+  const long long base = (long long)tile * kXBlk;
+  // 16-byte word q of the tile holds fields 4 (q & 3) .. 4 (q & 3) + 3 of
+  // lane q >> 2; four loads in flight a thread (eight spill at 42 registers)
+#pragma unroll 4
   for (int k = 0; k < kXBlk * 4 / kXThreads; ++k) {
     const int q = t + k * kXThreads;
     const int lane = q >> 2;
-    const int f0 = 4 * (q & 3);
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (base + lane < mp) v = x[base * 4 + q];
-    tile[f0][lane] = v.x;
-    tile[f0 + 1][lane] = v.y;
-    tile[f0 + 2][lane] = v.z;
-    tile[f0 + 3][lane] = v.w;
+    if (base + lane < mp) v = __ldcs(x + base * 4 + q);
+    unsigned* d = rows + 4 * (q & 3) * kXRow + xslot(lane);
+    d[0] = v.x;
+    d[kXRow] = v.y;
+    d[2 * kXRow] = v.z;
+    d[3 * kXRow] = v.w;
   }
   __syncthreads();
-  const int w = t >> 5, l = t & 31;
-  for (int f = w; f < kFields; f += kXThreads / 32) {
-    unsigned carry = offsets[blockIdx.x * kFields + f];
-    for (int sg = 0; sg < kXBlk / 32; ++sg) {
-      const int lane = sg * 32 + l;
-      unsigned v = tile[f][lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned u = __shfl_up_sync(0xffffffffu, v, o);
-        if (l >= o) v += u;
-      }
-      v += carry;
-      if (base + lane < mp) out[f * mp + base + lane] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
+  const int f = t >> 5, l = t & 31;
+  unsigned* run = rows + f * kXRow + xslot(l * kXRun);
+  unsigned sum = 0u;
+#pragma unroll 8
+  for (int k = 0; k < kXRun; ++k) sum += run[k];
+  unsigned incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (l >= o) incl += u;
+  }
+  const unsigned agg = __shfl_sync(0xffffffffu, incl, 31);
+  unsigned long long* st = status + (long long)f * nt;
+  if (l == 0) atomicExch(st + tile, (tile == 0 ? kXInclusive : kXAggregate) | agg);
+  unsigned acc = incl - sum;
+  if (tile > 0) {
+    const unsigned excl = xpose_look_back(st, tile, l);
+    if (l == 0) atomicExch(st + tile, kXInclusive | (excl + agg));
+    acc += excl;
+  }
+#pragma unroll 8
+  for (int k = 0; k < kXRun; ++k) {
+    acc += run[k];
+    run[k] = acc;
+  }
+  __syncthreads();
+  // word q of the output tile: lanes 4c .. 4c + 3 of row q / (kXBlk / 4)
+#pragma unroll
+  for (int k = 0; k < kFields * kXBlk / 4 / kXThreads; ++k) {
+    const int q = t + k * kXThreads;
+    const int fr = q / (kXBlk / 4);
+    const int lane = 4 * (q % (kXBlk / 4));
+    const unsigned* src = rows + fr * kXRow + xslot(lane);
+    const long long g = base + lane;
+    unsigned* dst = out + fr * mp + g;
+    if (vec && g + 3 < mp) {
+      __stcs(reinterpret_cast<uint4*>(dst), make_uint4(src[0], src[1], src[2], src[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (g + j < mp) dst[j] = src[j];
     }
   }
 }
@@ -270,18 +292,25 @@ extern "C" int gsdf_window_gather_cols(const void* ws, const void* table, long l
   return window_gather(false, ws, table, lanes, ranks, mp, win, cpc, out, stream);
 }
 
-// x [mp, 16] int32 (16-byte aligned), totals [ceil(mp / 512), 16] scratch, out [16, mp].
-extern "C" int gsdf_xpose_cumsum(const void* x, long long mp, void* totals, void* out, void* stream) {
+// x [mp, 16] int32 (16-byte aligned), scratch [16 ceil(mp / kXBlk) + 1]
+// 64-bit words (the status words [16, tiles] and the ticket; zeroed here on
+// the stream, so a CUDA graph replays the zeroing), out [16, mp].
+extern "C" int gsdf_xpose_cumsum(const void* x, long long mp, void* scratch, long long scratch_words, void* out,
+                                 void* stream) {
   if (mp <= 0) return 0;
-  const long long nb = (mp + kXBlk - 1) / kXBlk;
+  const long long nt = (mp + kXBlk - 1) / kXBlk;
+  if (nt > 0x7fffffff || scratch_words != kFields * nt + 1) return (int)cudaErrorInvalidValue;
+  // the tile takes more than the 48 KB of static shared memory; set once
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(xpose_cumsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kXSmem);
+  if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  xpose_totals_kernel<<<(unsigned)nb, kXThreads, 0, s>>>((const uint4*)x, mp, (unsigned*)totals);
-  cudaError_t err = cudaGetLastError();
+  auto* status = (unsigned long long*)scratch;
+  cudaError_t err = cudaMemsetAsync(status, 0, scratch_words * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
-  xpose_scan_totals_kernel<<<1, kScanThreads, 0, s>>>((unsigned*)totals, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  xpose_cumsum_kernel<<<(unsigned)nb, kXThreads, 0, s>>>((const uint4*)x, mp, (const unsigned*)totals,
-                                                         (unsigned*)out);
+  const bool vec = mp % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  xpose_cumsum_kernel<<<(unsigned)nt, kXThreads, kXSmem, s>>>((const uint4*)x, mp, (int)nt, status,
+                                                             (unsigned*)(status + kFields * nt), vec,
+                                                             (unsigned*)out);
   return (int)cudaGetLastError();
 }

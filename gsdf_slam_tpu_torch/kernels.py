@@ -78,8 +78,8 @@ _SIGNATURES = {
     # ws, table, lanes, ranks, MP, win, cpc, out, stream
     "gsdf_window_gather_rows": (_P, _P, _L, _P, _L, _I, _I, _P, _P),
     "gsdf_window_gather_cols": (_P, _P, _L, _P, _L, _I, _I, _P, _P),
-    # x, MP, totals, out, stream
-    "gsdf_xpose_cumsum": (_P, _L, _P, _P, _P),
+    # x, MP, scratch, scratch words, out, stream
+    "gsdf_xpose_cumsum": (_P, _L, _P, _L, _P, _P),
 }
 
 _lib = None

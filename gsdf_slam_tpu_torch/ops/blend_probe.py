@@ -11,7 +11,11 @@ chunk boundary (the TPU's `cond`). Edge pixels outside the image count.
 Forward modes of `blend_probe_fwd` (kernel `csrc/blend_probe.cu`), each
 returning accum [T,256,3], log_t_eff [T,256], log_t_raw [T,256] and n_done
 [T] int32, the number of chunks walked (the TPU's accum, teff, traw,
-ndone):
+ndone). The kernel runs all six on the skeleton of K1, K4 and pair2
+(chunks staged pair-major by `cp.async` with each pair's live threshold,
+one barrier a chunk that carries the exit vote, `log1p_live`), so the
+modes differ only in the per-pair math (`unroll2` also in its ring depth
+and exit cadence) and each isolates a stage of the kernels the port runs:
 
 - `floor` (`_fwd_kernel_floor`): staging and loop only; log_t_eff holds
   the sum over chunks of 1e-30 x the sum of the chunk's mean x, accum and

@@ -12,7 +12,12 @@ which moves the `[16, lanes]` pair table the blend reads:
   [16, MP];
 - `xpose_cumsum` (`bench_expand_xpose_cumsum_pallas`, body
   `_xpose_cumsum_kernel`): the inclusive int32 cumsum of [MP, 16] along
-  MP, modulo 2**32, written transposed as [16, MP].
+  MP, modulo 2**32, written transposed as [16, MP]. The TPU carries the
+  sum across a sequential grid; the kernel is one pass over 1024-lane
+  tiles taken in ticket order, each tile's offset found by a decoupled
+  look-back over its predecessors' published sums, so the input is read
+  once. Its scratch (`xpose_scratch`) holds a 64-bit status word per
+  (field, tile) and the ticket, zeroed by the kernel's entry on the stream.
 
 The kernels are in `csrc/pair_table.cu`. All four move 32-bit words or add
 integers, so each kernel is bit-equal to its plain version. On a CPU tensor
@@ -30,7 +35,9 @@ FIELDS = 16  # rows of the pair table
 CHUNK = 128  # lanes per realign chunk (microbench.CHUNK)
 WIN_ROWS, CPC_ROWS = 1152, 1024  # window and chunk of `bench_windowed_gather`
 WIN_COLS, CPC_COLS = 2176, 2048  # of `bench_windowed_gather_dg`
-XPOSE_BLOCK = 512  # lanes per block of the xpose_cumsum kernel (csrc/pair_table.cu kXBlk)
+# lanes per tile of the xpose_cumsum kernel: a copy of kXBlk in
+# csrc/pair_table.cu, which tests/test_torch_microbench.py ties to it
+XPOSE_BLOCK = 1024
 
 
 def realign_copy_plain(tbl, src, mpa: int):
@@ -140,6 +147,13 @@ def xpose_cumsum_plain(x):
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32).t().contiguous()
 
 
+def xpose_scratch(mp: int, device):
+    """The xpose_cumsum kernel's scratch for MP lanes: a 64-bit status word
+    per (field, tile), [16, ceil(MP / XPOSE_BLOCK)], then the tile ticket.
+    Left unset: the kernel's entry zeroes it on the stream."""
+    return torch.empty((FIELDS * -(-mp // XPOSE_BLOCK) + 1,), dtype=torch.int64, device=device)
+
+
 def xpose_cumsum(x):
     """out [16, MP] int32 with out[f, i] = sum of x[j, f] over j <= i,
     modulo 2**32, for x [MP, 16] int32. Replaces
@@ -152,9 +166,8 @@ def xpose_cumsum(x):
     if x.data_ptr() % 16:
         raise ValueError("x: the kernel reads 16-byte words; its data must be 16-byte aligned")
     mp = x.shape[0]
-    nb = -(-mp // XPOSE_BLOCK)
     out = torch.empty((FIELDS, mp), dtype=torch.int32, device=dev)
-    totals = torch.empty((max(nb, 1), FIELDS), dtype=torch.int32, device=dev)  # scratch
+    scratch = xpose_scratch(mp, dev)
     kernels.LAUNCHES["xpose_cumsum"] += 1
-    kernels.launch("gsdf_xpose_cumsum", x.data_ptr(), mp, totals.data_ptr(), out.data_ptr())
+    kernels.launch("gsdf_xpose_cumsum", x.data_ptr(), mp, scratch.data_ptr(), scratch.numel(), out.data_ptr())
     return out

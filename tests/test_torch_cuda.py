@@ -287,6 +287,22 @@ def test_probe_bwd_on_direct_binnings(dev, name, chunk):
 
 
 @pytest.mark.parametrize("chunk", [128, 16])
+@pytest.mark.parametrize("name", ["sparse", "dense", *EXPORT_BINNINGS])
+@pytest.mark.parametrize("mode", blend_probe.FWD_MODES)
+def test_probe_fwd_on_direct_binnings(dev, mode, name, chunk):
+    """Each forward mode on walks of 1, 32, 33 and 300 pairs (a lone pair, a
+    full chunk of 16 or 32, a partial last chunk, many chunks), on 600
+    faint pairs and on 800 opaque ones whose chunk exit fires: within
+    FWD_SMALL of the plain version, n_done exact."""
+    ranges, payload, _, _, g = _direct_binning(name, dev)
+    got = blend_probe.blend_probe_fwd(ranges, payload, g, g, mode, chunk)
+    want = blend_probe.blend_probe_fwd_plain(ranges, payload, g, g, mode, chunk)
+    torch.cuda.synchronize()
+    errs, failed = checks.fwd_check(mode, got, want, payload, ranges, checks.FWD_SMALL)
+    assert not failed, errs
+
+
+@pytest.mark.parametrize("chunk", [128, 16])
 def test_probe_pair2_odd_row_one_tile_exits_first(dev, chunk):
     """pair2 on three tiles: a pair whose first tile exits chunks before its
     partner, and a last tile with no partner; bit-equal to the chunk_exit
@@ -350,9 +366,23 @@ def test_window_gather_bit_equal(dev, kind, p, mp):
     assert checks.bit_equal(got, plain(*args))
 
 
-@pytest.mark.parametrize("mp", [4 * 512, 5 * 512 + 77, 393_216])
+@pytest.mark.parametrize("mp", [1, 511, 2047, 4 * 512, 5 * 512 + 77, 3000, 393_216, 1_048_576 + 77])
 def test_xpose_cumsum_bit_equal(dev, mp):
+    """A lone partial tile (1, 511), a partial second tile (2047), whole
+    tiles, a masked end in scalar stores (rows not 16-byte aligned: 2637,
+    1,048,653) and in 16-byte ones (3000), and look-backs across many
+    windows of 32 tiles (393,216, 1,048,653)."""
     x = torch.from_numpy(microbench.xpose_inputs(mp)).to(dev)
     got = pair_table.xpose_cumsum(x)
     torch.cuda.synchronize()
     assert torch.equal(got, pair_table.xpose_cumsum_plain(x))
+
+
+def test_xpose_cumsum_five_launches_agree(dev):
+    """Five launches on one input give one output: a look-back that read a
+    predecessor's status word before it was published would show here."""
+    x = torch.from_numpy(microbench.xpose_inputs(1_048_576 + 77)).to(dev)
+    outs = [pair_table.xpose_cumsum(x) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], pair_table.xpose_cumsum_plain(x))

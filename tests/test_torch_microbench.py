@@ -10,6 +10,7 @@ lanes of `take_along_axis`. Then every experiment of
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -175,6 +176,21 @@ def test_xpose_cumsum_plain_matches_jax():
     np.testing.assert_array_equal(got, want)
     exact = np.cumsum(x.astype(np.int64), axis=0).T
     np.testing.assert_array_equal(got, ((exact + 2**31) % 2**32 - 2**31).astype(np.int32))
+
+
+def test_xpose_scratch_matches_the_kernel():
+    """The wrapper's tile and the scratch it allocates are the kernel's: the
+    tile is kXBlk of csrc/pair_table.cu, and the scratch holds one 64-bit
+    status word per (field, tile) and the ticket, the size the kernel's
+    entry demands."""
+    src = (REPO / "gsdf_slam_tpu_torch" / "csrc" / "pair_table.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (kXBlk|kFields) = (\d+);", src)}
+    assert const == {"kXBlk": pair_table.XPOSE_BLOCK, "kFields": pair_table.FIELDS}
+    assert "nt = (mp + kXBlk - 1) / kXBlk;" in src and "scratch_words != kFields * nt + 1" in src
+    for mp in (1, 511, 1024, 1025, 2047, 393_216, 1_048_576 + 77):
+        scratch = pair_table.xpose_scratch(mp, "cpu")
+        tiles = -(-mp // const["kXBlk"])
+        assert scratch.dtype == torch.int64 and scratch.shape == (const["kFields"] * tiles + 1,), mp
 
 
 def test_sorts_key_orders_as_the_two_key_sort():
