@@ -24,18 +24,30 @@
 // _wingather_kernel :296, a one-hot [1024, 1152] x [1152, 16] product on the
 // MXU per chunk, output [MP, 16]) and bench_windowed_gather_dg (:399, body
 // _wingather_dg_kernel :358, a lane take_along_axis over a 2176-lane
-// window, output [16, MP]). One template, the output layout its parameter:
-// one thread per output lane reads its 16 fields straight from the table.
-// The TPU staged the window in VMEM; here that would take 74 or 139 KB of
-// shared memory a block, and it is not needed: a dense monotone rank makes a
-// warp's 32 loads of one field row fall on a few consecutive words, so the
-// loads coalesce. [MP, 16] is written as four 16-byte stores per lane,
-// [16, MP] as one coalesced row store per field. The one-hot product at
-// Precision.HIGHEST equals this copy on finite inputs, with two exceptions
-// the copy does not share: -0.0 comes out +0.0, and a NaN or inf anywhere in
-// the chunk's window spreads to the chunk's lanes. Out of the window the
-// rows layout writes 0 (the one-hot product's value) and the cols layout
-// NaN (0x7fc00000), where take_along_axis is undefined.
+// window, output [16, MP]). In both, one thread per output lane reads its
+// 16 fields straight from the table. The TPU staged the window in VMEM;
+// here that would take 74 or 139 KB of shared memory a block, and it is not
+// needed: a dense monotone rank makes a warp's 32 loads of one field row
+// fall on a few consecutive words, so the loads coalesce, and neighbouring
+// lanes reread the same words through L1, so the table keeps the default
+// cache. The output is what costs: it is 4x the table bytes read and larger
+// than L2 at the headline.
+// - cols ([16, MP]) writes one coalesced 128-byte row segment a warp per
+//   field.
+// - rows ([MP, 16]) puts each lane's 16 fields as four 16-byte words into
+//   a [256, 16] tile in shared memory (XOR-swizzled, so both the writes and
+//   the reads are free of bank conflicts), and after one barrier the block
+//   stores the tile as one contiguous 16 KB run of 16-byte streaming stores
+//   (`__stcs`): each warp store instruction writes 512 contiguous bytes,
+//   where a lane storing its own 64-byte row would spread each one over 32
+//   pieces of 16 bytes across 2 KB (PERF.md prices the two). The ranks and
+//   window starts are read once, with streaming loads.
+// The one-hot product at Precision.HIGHEST equals this copy on finite
+// inputs, with two exceptions the copy does not share: -0.0 comes out
+// +0.0, and a NaN or inf anywhere in the chunk's window spreads to the
+// chunk's lanes. Out of the window the rows layout writes 0 (the one-hot
+// product's value) and the cols layout NaN (0x7fc00000), where
+// take_along_axis is undefined.
 //
 // xpose_cumsum replaces bench_expand_xpose_cumsum_pallas (:804, body
 // _xpose_cumsum_kernel :775), which transposes 512-lane blocks and carries
@@ -129,11 +141,11 @@ __global__ void __launch_bounds__(kRealignThreads) realign_kernel(const int* __r
   }
 }
 
-template <bool kRows>
-__global__ void __launch_bounds__(kGatherThreads) window_gather_kernel(
+// out [16, mp]: one thread per output lane, one coalesced row store per
+// field; NaN (0x7fc00000) out of the window
+__global__ void __launch_bounds__(kGatherThreads) window_gather_cols_kernel(
     const int* __restrict__ ws, const unsigned* __restrict__ table, long long lanes,
-    const int* __restrict__ ranks, long long mp, int win, int cpc, unsigned fill,
-    unsigned* __restrict__ out) {
+    const int* __restrict__ ranks, long long mp, int win, int cpc, unsigned* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
   if (i >= mp) return;
   const long long r = ranks[i];
@@ -141,14 +153,48 @@ __global__ void __launch_bounds__(kGatherThreads) window_gather_kernel(
   const bool inside = local >= 0 && local < win && r >= 0 && r < lanes;
   unsigned v[kFields];
 #pragma unroll
-  for (int f = 0; f < kFields; ++f) v[f] = inside ? table[f * lanes + r] : fill;
-  if (kRows) {
-    uint4* o = reinterpret_cast<uint4*>(out + i * kFields);
+  for (int f = 0; f < kFields; ++f) v[f] = inside ? table[f * lanes + r] : 0x7fc00000u;
 #pragma unroll
-    for (int q = 0; q < kFields / 4; ++q) o[q] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else {
+  for (int f = 0; f < kFields; ++f) out[f * mp + i] = v[f];
+}
+
+// where 16-byte word q (fields 4q .. 4q + 3) of lane l of a block sits in
+// its tile: the word index XOR-swizzled by bits 1-2 of the lane, so the 8
+// lanes of a quarter warp's 16-byte accesses hit the 8 four-bank groups
+// both when a thread writes its lane's four words and when neighbouring
+// threads read neighbouring words
+__device__ __forceinline__ int gather_slot(int l, int q) { return 4 * l + (q ^ ((l >> 1) & 3)); }
+
+// out [mp, 16] as 16-byte words: one thread per output lane loads its 16
+// fields, the block's [kGatherThreads, 16] tile goes through shared memory,
+// and the block writes it back as one contiguous run of streaming stores
+__global__ void __launch_bounds__(kGatherThreads) window_gather_rows_kernel(
+    const int* __restrict__ ws, const unsigned* __restrict__ table, long long lanes,
+    const int* __restrict__ ranks, long long mp, int win, int cpc, uint4* __restrict__ out) {
+  __shared__ uint4 tile[kGatherThreads * kFields / 4];
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * kGatherThreads;
+  const long long i = base + t;
+  long long r = 0;
+  bool inside = false;
+  if (i < mp) {
+    r = __ldcs(ranks + i);
+    const long long local = r - __ldcs(ws + i / cpc);
+    inside = local >= 0 && local < win && r >= 0 && r < lanes;
+  }
+  unsigned v[kFields];
 #pragma unroll
-    for (int f = 0; f < kFields; ++f) out[f * mp + i] = v[f];
+  for (int f = 0; f < kFields; ++f) v[f] = inside ? table[f * lanes + r] : 0u;
+#pragma unroll
+  for (int q = 0; q < kFields / 4; ++q)
+    tile[gather_slot(t, q)] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  __syncthreads();
+  // word w of the block's output: a warp stores 512 contiguous bytes
+#pragma unroll
+  for (int k = 0; k < kFields / 4; ++k) {
+    const int w = t + k * kGatherThreads;
+    const int l = w >> 2;
+    if (base + l < mp) __stcs(out + base * (kFields / 4) + w, tile[gather_slot(l, w & 3)]);
   }
 }
 
@@ -252,22 +298,6 @@ __global__ void __launch_bounds__(kXThreads, 3) xpose_cumsum_kernel(const uint4*
   }
 }
 
-int window_gather(bool rows, const void* ws, const void* table, long long lanes, const void* ranks,
-                  long long mp, int win, int cpc, void* out, void* stream) {
-  if (mp <= 0) return 0;
-  const unsigned blocks = (unsigned)((mp + kGatherThreads - 1) / kGatherThreads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (rows) {
-    window_gather_kernel<true><<<blocks, kGatherThreads, 0, s>>>(
-        (const int*)ws, (const unsigned*)table, lanes, (const int*)ranks, mp, win, cpc, 0u, (unsigned*)out);
-  } else {
-    window_gather_kernel<false><<<blocks, kGatherThreads, 0, s>>>(
-        (const int*)ws, (const unsigned*)table, lanes, (const int*)ranks, mp, win, cpc, 0x7fc00000u,
-        (unsigned*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // tbl [3, ng] int32 (src0, dst0, nch), src [16, lanes], out [16, mpa]; mpa % 4 == 0.
@@ -283,13 +313,21 @@ extern "C" int gsdf_realign_copy(const void* tbl, int ng, const void* src, long 
 // ws [mp / cpc], table [16, lanes], ranks [mp], out [mp, 16].
 extern "C" int gsdf_window_gather_rows(const void* ws, const void* table, long long lanes, const void* ranks,
                                        long long mp, int win, int cpc, void* out, void* stream) {
-  return window_gather(true, ws, table, lanes, ranks, mp, win, cpc, out, stream);
+  if (mp <= 0) return 0;
+  window_gather_rows_kernel<<<(unsigned)((mp + kGatherThreads - 1) / kGatherThreads), kGatherThreads, 0,
+                              (cudaStream_t)stream>>>((const int*)ws, (const unsigned*)table, lanes,
+                                                      (const int*)ranks, mp, win, cpc, (uint4*)out);
+  return (int)cudaGetLastError();
 }
 
 // ws [mp / cpc], table [16, lanes], ranks [mp], out [16, mp].
 extern "C" int gsdf_window_gather_cols(const void* ws, const void* table, long long lanes, const void* ranks,
                                        long long mp, int win, int cpc, void* out, void* stream) {
-  return window_gather(false, ws, table, lanes, ranks, mp, win, cpc, out, stream);
+  if (mp <= 0) return 0;
+  window_gather_cols_kernel<<<(unsigned)((mp + kGatherThreads - 1) / kGatherThreads), kGatherThreads, 0,
+                              (cudaStream_t)stream>>>((const int*)ws, (const unsigned*)table, lanes,
+                                                      (const int*)ranks, mp, win, cpc, (unsigned*)out);
+  return (int)cudaGetLastError();
 }
 
 // x [mp, 16] int32 (16-byte aligned), scratch [16 ceil(mp / kXBlk) + 1]

@@ -15,9 +15,10 @@ through its own wrappers on the same inputs:
   `blend_probe_fwd_pair2` and `blend_probe_bwd` (from this tree's
   `chunk_exit` walk);
 - `expand_gather` at mp 1,048,576 (`expand_probe`'s inputs), and the
-  pair-table kernels on `probes.microbench`'s inputs: `realign_copy` and
-  both window gathers at P 400,000, MP 1,048,576, `xpose_cumsum` at MP
-  393,216 and 1,048,576.
+  pair-table kernels on `probes.microbench`'s inputs: `realign_copy` at MP
+  1,048,576, both window gathers at P 400,000, MP 1,048,576 and (names
+  ending `@393216`) at the bench's default P 262,144, MP 393,216,
+  `xpose_cumsum` at MP 393,216 and 1,048,576.
 
 Checks, each tree against this tree: K1's and K4's accum, log_t_eff and
 n_contrib bit-equal to this tree's K1, their checkpoints bit-equal on the
@@ -63,9 +64,12 @@ K2_BAR = 3e-4
 # fits in the 50 MB L2
 P_HEAD, MP_HEAD = 400_000, 1_048_576
 XPOSE_MPS = (393_216, MP_HEAD)
+# (name suffix, P, MP) of the window gathers: the headline and the bench's
+# default size
+WINDOW_SIZES = (("", P_HEAD, MP_HEAD), ("@393216", 262_144, 393_216))
+WINDOW_NAMES = tuple(f"window_gather_{kind}{sfx}" for sfx, _, _ in WINDOW_SIZES for kind in ("rows", "cols"))
 FWD_NAMES = tuple(f"blend_probe_fwd:{m}" for m in blend_probe.FWD_MODES)
-PAIR_TABLE_NAMES = ("realign_copy", "window_gather_rows", "window_gather_cols",
-                    *(f"xpose_cumsum@{mp}" for mp in XPOSE_MPS))
+PAIR_TABLE_NAMES = ("realign_copy", *WINDOW_NAMES, *(f"xpose_cumsum@{mp}" for mp in XPOSE_MPS))
 # K4 also at margin 1, where its walk is K1's: K4/K1 there is the cost of
 # the keep marks and the phase test alone
 NAMES = ("blend_fwd", "blend_fwd_export", "blend_fwd_export@1", "blend_bwd", *FWD_NAMES,
@@ -96,7 +100,8 @@ def pair_table_inputs(dev) -> dict:
     out = {"realign_copy": (put(tbl), put(src), mpa)}
     for name, win, cpc in (("window_gather_rows", pair_table.WIN_ROWS, pair_table.CPC_ROWS),
                            ("window_gather_cols", pair_table.WIN_COLS, pair_table.CPC_COLS)):
-        out[name] = tuple(put(a) for a in microbench.window_inputs(P_HEAD, MP_HEAD, win, cpc))
+        for sfx, p, mp in WINDOW_SIZES:
+            out[name + sfx] = tuple(put(a) for a in microbench.window_inputs(p, mp, win, cpc))
     for mp in XPOSE_MPS:
         out[f"xpose_cumsum@{mp}"] = (put(microbench.xpose_inputs(mp)),)
     # the expansion probe's Gaussian count at this mp (expand_probe.main)
@@ -139,9 +144,9 @@ def main(argv=None) -> int:
             "blend_probe_bwd": lambda: bp.blend_probe_bwd(*pb_args),
             "expand_gather": lambda: bp.expand_gather(*pt_in["expand_gather"]),
             "realign_copy": lambda: pt.realign_copy(*pt_in["realign_copy"]),
-            "window_gather_rows": lambda: pt.window_gather_rows(*pt_in["window_gather_rows"]),
-            "window_gather_cols": lambda: pt.window_gather_cols(*pt_in["window_gather_cols"]),
         }
+        for name in WINDOW_NAMES:
+            calls[name] = lambda name=name: getattr(pt, name.split("@")[0])(*pt_in[name])
         for name, mode in zip(FWD_NAMES, blend_probe.FWD_MODES):
             calls[name] = lambda mode=mode: bp.blend_probe_fwd(ranges, payload, gw, gh, mode, 128)
         for mp in XPOSE_MPS:

@@ -9,7 +9,8 @@ also runs where jax is not installed:
 import pytest
 import torch
 from torch_port_helpers import (
-    EXPORT_BINNINGS, FOV, POSE, export_binning, pair2_binning, scene_arrays, synthetic_binning, torch_args,
+    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, export_binning, pair2_binning, scene_arrays,
+    synthetic_binning, torch_args, window_edge_case,
 )
 
 from gsdf_slam_tpu_torch import kernels
@@ -352,18 +353,57 @@ def test_realign_copy_ragged(dev):
     assert want[:, 512:612].all() and not want[:, 612:1024].any() and want[:, 1024:].all()
 
 
+def _window(kind):
+    return (pair_table.WIN_ROWS, pair_table.CPC_ROWS) if kind == "rows" else (pair_table.WIN_COLS,
+                                                                              pair_table.CPC_COLS)
+
+
 @pytest.mark.parametrize("kind", ["rows", "cols"])
-@pytest.mark.parametrize("p, mp", [(2048, 8192), (262_144, 393_216)])
+@pytest.mark.parametrize("p, mp", [(2048, 8192), (262_144, 393_216), (400_000, 1_048_576), (512, None)])
 def test_window_gather_bit_equal(dev, kind, p, mp):
-    win, cpc = (pair_table.WIN_ROWS, pair_table.CPC_ROWS) if kind == "rows" else (pair_table.WIN_COLS,
-                                                                                   pair_table.CPC_COLS)
-    args = [torch.from_numpy(a).to(dev) for a in microbench.window_inputs(p, mp, win, cpc)]
+    """The bench's inputs at a small, the default and the headline size, and
+    (mp None) a single chunk."""
+    win, cpc = _window(kind)
+    args = [torch.from_numpy(a).to(dev) for a in microbench.window_inputs(p, mp or cpc, win, cpc)]
     args[2][::997] += 5000  # some lanes out of their window
     kern = getattr(pair_table, f"window_gather_{kind}")
     plain = getattr(pair_table, f"window_gather_{kind}_plain")
     got = kern(*args)
     torch.cuda.synchronize()
     assert checks.bit_equal(got, plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["rows", "cols"])
+@pytest.mark.parametrize("case", WINDOW_EDGE_CASES)
+def test_window_gather_edge_cases_bit_equal(dev, kind, case):
+    """A chunk wholly out of its window, negative ranks and ranks past the
+    table, -0.0, infs, NaN payloads and denormals, an odd lane count and a
+    ragged last block (torch_port_helpers.WINDOW_EDGE_CASES), each bit-equal
+    to the plain version."""
+    *arrays, win, cpc = window_edge_case(case)
+    ws, table, ranks = (torch.from_numpy(a).to(dev) for a in arrays)
+    got = getattr(pair_table, f"window_gather_{kind}")(ws, table, ranks, win, cpc)
+    torch.cuda.synchronize()
+    assert checks.bit_equal(got, getattr(pair_table, f"window_gather_{kind}_plain")(ws, table, ranks, win, cpc))
+
+
+@pytest.mark.parametrize("p, mp", [(2048, 8192), (400_000, 1_048_576)])
+def test_window_gather_rows_is_cols_transposed(dev, p, mp):
+    """The two kernels at the rows layout's window and chunk: the rows
+    output is the cols output transposed inside the window, word for word,
+    and 0 where the cols output is NaN."""
+    win, cpc = _window("rows")
+    ws, table, ranks = (torch.from_numpy(a).to(dev) for a in microbench.window_inputs(p, mp, win, cpc))
+    ranks[::997] += 5000  # some lanes out of their window
+    rows = pair_table.window_gather_rows(ws, table, ranks, win, cpc)
+    cols = pair_table.window_gather_cols(ws, table, ranks, win, cpc).t()
+    torch.cuda.synchronize()
+    local = ranks.long() - ws.long().repeat_interleave(cpc)
+    inside = (local >= 0) & (local < win)
+    assert 0 < int(inside.sum()) < mp
+    assert checks.bit_equal(rows[inside], cols[inside])
+    assert (rows[~inside].view(torch.int32) == 0).all()
+    assert (cols[~inside].view(torch.int32) == 0x7FC00000).all()
 
 
 @pytest.mark.parametrize("mp", [1, 511, 2047, 4 * 512, 5 * 512 + 77, 3000, 393_216, 1_048_576 + 77])

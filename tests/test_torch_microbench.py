@@ -20,6 +20,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+from torch_port_helpers import WINDOW_EDGE_CASES, window_edge_case, window_gather_reference
 
 from gsdf_slam_tpu_torch.ops import pair_table
 from gsdf_slam_tpu_torch.probes import checks, microbench
@@ -157,6 +158,37 @@ def test_window_gathers_outside_the_window():
     torch.testing.assert_close(cols[:, inside], table[:, r[inside]], rtol=0, atol=0)
     assert torch.isnan(cols[:, ~inside]).all()
     assert (cols[:, ~inside].view(torch.int32) == 0x7FC00000).all()
+
+
+@pytest.mark.parametrize("p, mp", [(2048, 8192), (20_000, 65_536)])
+def test_window_gather_rows_is_cols_transposed(p, mp):
+    """At one window and chunk, the rows layout is the cols layout
+    transposed inside the window, word for word; outside it the rows layout
+    holds 0 where the cols layout holds NaN."""
+    win, cpc = pair_table.WIN_ROWS, pair_table.CPC_ROWS
+    ws, table, ranks = (torch.from_numpy(a) for a in microbench.window_inputs(p, mp, win, cpc))
+    ranks[::997] += 5000  # some lanes out of their window
+    rows = pair_table.window_gather_rows_plain(ws, table, ranks, win, cpc)
+    cols = pair_table.window_gather_cols_plain(ws, table, ranks, win, cpc)
+    local = ranks.long() - ws.long().repeat_interleave(cpc)
+    inside = (local >= 0) & (local < win)
+    assert 0 < int(inside.sum()) < mp
+    assert checks.bit_equal(rows[inside], cols.t()[inside])
+    assert (rows[~inside].view(torch.int32) == 0).all()
+    assert (cols.t()[~inside].view(torch.int32) == 0x7FC00000).all()
+
+
+@pytest.mark.parametrize("case", WINDOW_EDGE_CASES)
+def test_window_gather_plain_edge_cases(case):
+    """Both layouts' plain versions against a lane-by-lane numpy gather on
+    the edge cases the card tests feed the kernels, bit for bit."""
+    ws, table, ranks, win, cpc = window_edge_case(case)
+    args = [torch.from_numpy(a) for a in (ws, table, ranks)]
+    rows = pair_table.window_gather_rows(*args, win=win, cpc=cpc).numpy()
+    cols = pair_table.window_gather_cols(*args, win=win, cpc=cpc).numpy()
+    np.testing.assert_array_equal(_bits(rows), _bits(window_gather_reference(ws, table, ranks, win, cpc, 0.0).T))
+    want = window_gather_reference(ws, table, ranks, win, cpc, np.float32(np.nan))
+    np.testing.assert_array_equal(_bits(cols), _bits(want))
 
 
 def test_xpose_cumsum_plain_matches_jax():

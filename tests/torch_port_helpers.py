@@ -137,3 +137,60 @@ def pair2_binning():
         payloads.append(pl)
         n += pl.shape[1]
     return torch.tensor(ranges, dtype=torch.int32), torch.cat(payloads, 1)
+
+
+# Edge cases of the window gathers (window_edge_case), each at the rows
+# layout's window and chunk unless it names its own:
+# "outside", one chunk whose window starts past all its lanes' ranks;
+# "bad_ranks", negative ranks and ranks >= lanes inside their windows, and
+#   the int32 extremes;
+# "special", a table holding -0.0, +-inf, NaNs of several payloads
+#   (signalling included) and denormals at the gathered lanes;
+# "odd_lanes", a table whose lane count is odd;
+# "ragged", MP 480 in 96-lane chunks with a 128-lane window: MP is not a
+#   multiple of a 256-lane block, and some lanes leave their window.
+WINDOW_EDGE_CASES = ("outside", "bad_ranks", "special", "odd_lanes", "ragged")
+
+
+def window_edge_case(name):
+    """(ws, table, ranks, win, cpc) numpy inputs of a WINDOW_EDGE_CASES entry."""
+    from gsdf_slam_tpu_torch.ops import pair_table
+    from gsdf_slam_tpu_torch.probes import microbench
+
+    win, cpc = pair_table.WIN_ROWS, pair_table.CPC_ROWS
+    if name == "ragged":
+        win, cpc = 128, 96
+        return (*microbench.window_inputs(300, 480, win, cpc), win, cpc)
+    ws, table, ranks = microbench.window_inputs(2048, 8192, win, cpc)
+    lanes = table.shape[1]
+    if name == "outside":
+        ws[1] += 5000
+    elif name == "bad_ranks":
+        ws[0] = -256
+        ranks[:300:3] = -np.arange(1, 101)
+        ws[-1] = lanes - 128
+        ranks[-1024::5] = lanes + np.arange(205)
+        ranks[5], ranks[-7] = -(2**31), 2**31 - 1
+    elif name == "special":
+        bits = table.view(np.uint32)
+        table[:, ::3] = -0.0
+        table[::2, 1::5] = np.inf
+        table[1::2, 1::5] = -np.inf
+        for k, pattern in enumerate((0x7FC00000, 0xFFC00001, 0x7F800001, 0x00000001, 0x807FFFFF)):
+            bits[k::5, 2::7] = pattern
+    elif name == "odd_lanes":
+        table = np.ascontiguousarray(table[:, : lanes - 1])
+        assert table.shape[1] % 2 == 1
+    else:
+        raise ValueError(name)
+    return ws, table, ranks, win, cpc
+
+
+def window_gather_reference(ws, table, ranks, win, cpc, fill):
+    """table[:, ranks] as [16, MP] numpy where a lane's rank lies in its
+    chunk's window and in the table, else `fill`: one lane at a time."""
+    out = np.full((table.shape[0], len(ranks)), fill, np.float32)
+    for i, r in enumerate(ranks.astype(np.int64)):
+        if 0 <= r - ws[i // cpc] < win and 0 <= r < table.shape[1]:
+            out[:, i] = table[:, r]
+    return out
