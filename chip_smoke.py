@@ -50,7 +50,19 @@ Phases, each printing its own lines:
    the microbench's default (P 262,144, MP 393,216) and at the headline
    (P 400,000, MP 1,048,576); then the microbench through its entry point,
    `probes.microbench.main`, with the launch counts taken over exactly that
-   run; then each kernel's time at the headline.
+   run; then each kernel's time at the headline;
+8. densify cycle: the model's life cycle at the headline through the
+   entry points a mapper calls, with the launch counts taken over exactly
+   this phase: a Scene of four Keyframes (cameras_extent from
+   nerfpp_norm), five fresh steps with densification statistics,
+   densify_and_prune (clone, split, prune) on the card against the same
+   surgery on a CPU copy with the same noise, render_depth_state through
+   K1 against the plain blend, increase_pcd of 200,000 seeded points,
+   reset_opacity and prune_young; binning caches from before a surgery
+   raise; three fresh steps, one export and three cached steps at the new
+   count. `[densify]` lines: counts before and after every step and
+   surgery, each surgery's host ms and host syncs, the fresh step median
+   before and after the cycle, and the phase's wall time.
 
 Each kernel is timed replayed from a CUDA graph (the device's time) beside
 its bound (the least time the card could take, from the bytes it must move,
@@ -181,6 +193,16 @@ MARGIN = 10.0
 # the cadence after densify_until_iter (engine/settings.py:97): one export
 # step, then rebin_interval_after_densify - 1 cached steps
 CACHED_STEPS = 7
+# phase 8: fresh steps with statistics before the densify; the keyframes'
+# offsets in x and y around the headline camera (at 0.5 m the extent is
+# 0.778 m, and so few Gaussians are small enough to clone that none of
+# them is in view: phase 8 prints the counts at both offsets); the
+# mapper's densify settings; the points of the ingest; prune_young's window
+CYCLE_STEPS = 5
+KF_OFFSET = 1.0
+DENSIFY = dict(max_grad=0.0002, min_opacity=0.005, max_screen_size=20, percent_dense=0.01)
+INGEST_POINTS = 200_000
+STABLE_NUM_ITER = 3
 
 
 def log(msg: str) -> None:
@@ -481,18 +503,6 @@ def profile_steps(torch, step, steps=3):
     return dev_ms, wall_ms, events.table(sort_by="self_device_time_total", row_limit=15)
 
 
-def clone_state(model, adam):
-    """An independent copy of the map and its Adam state."""
-    from gsdf_slam_tpu_torch.models import AdamState, GaussianModel
-
-    m = GaussianModel({k: p.detach().clone() for k, p in model.params().items()})
-    for k, buf in m.named_buffers():
-        buf.copy_(getattr(model, k))
-    a = AdamState(m={k: v.clone() for k, v in adam.m.items()},
-                  v={k: v.clone() for k, v in adam.v.items()}, step=adam.step)
-    return m, a
-
-
 def count_syncs(torch, fn):
     """Run fn under torch.cuda.set_sync_debug_mode("warn"): the number of
     synchronizing CUDA operations torch reports, and where they were called."""
@@ -521,6 +531,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     state, in turns: fresh, cadence, cadence, fresh. Returns the launch
     counts of the first cadence and the failed checks."""
     from gsdf_slam_tpu_torch import kernels
+    from gsdf_slam_tpu_torch.convert import copy_state
     from gsdf_slam_tpu_torch.engine import train_step
 
     n = 1 + CACHED_STEPS
@@ -554,7 +565,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
 
     failed = []
     # warm-up on a scratch copy: the first export and cached step allocate
-    wm, wa = clone_state(model, adam)
+    wm, wa = copy_state(model, adam)
     cadence_run(stepper(wm, wa))
     del wm, wa
 
@@ -566,7 +577,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     want = {**dict.fromkeys(kernels.LAUNCHES, 0),
             "blend_fwd_export": 1, "tile_ranges_pack": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
-        m, a = clone_state(model, adam)
+        m, a = copy_state(model, adam)
         if kind == "fresh":
             metrics, ms = fresh_run(stepper(m, a))
             fresh_ms += ms
@@ -605,7 +616,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
         f"mean over the cadence {(sum(export_ms) + sum(cached_ms)) / (len(export_ms) + len(cached_ms)):.4f} "
         f"ms/step on {smi}")
 
-    m, a = clone_state(model, adam)
+    m, a = copy_state(model, adam)
     step = stepper(m, a)
     _, cache = step(0, export_binning_cache=True)
     kinds = {
@@ -768,6 +779,236 @@ def check_pair_table(torch, tag, cases):
         if not same:
             failed.append(f"pair-table-{name}@{tag}")
     return failed
+
+
+def run_op(torch, fn):
+    """Run fn once under count_syncs: (its result, host ms from the call to
+    the device's completion, host syncs, where they were called)."""
+    box = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n, where = count_syncs(torch, lambda: box.setdefault("out", fn()))
+    return box["out"], (time.perf_counter() - t0) * 1e3, n, where
+
+
+def drive_densify_cycle(torch, device, smi):
+    """Phase 8: one densify cycle at the headline through the port's entry
+    points, with every surgery's host ms and syncs. Returns the launch
+    counts over the phase and the failed checks."""
+    from gsdf_slam_tpu_torch import kernels
+    from gsdf_slam_tpu_torch.config import OptimizationParams
+    from gsdf_slam_tpu_torch.convert import copy_state
+    from gsdf_slam_tpu_torch.engine import Camera, Keyframe, Scene, render_depth_state, render_state, train_step
+    from gsdf_slam_tpu_torch.models import AdamState, densify_and_prune, increase_pcd, prune_young, reset_opacity
+    from gsdf_slam_tpu_torch.models.gaussian_model import VOXEL_SIZE
+    from gsdf_slam_tpu_torch.ops import RasterizeConfig
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.scene import HEIGHT, WIDTH, headline_scene
+
+    t_phase = time.perf_counter()
+    failed = []
+    kernels.reset_launch_counts()
+    model = headline_scene(device)
+    adam = AdamState.init(model.params())
+    rng = np.random.default_rng(8)
+    cam = Camera(camera_id=0, fx=600.0, fy=600.0, cx=WIDTH / 2, cy=HEIGHT / 2, width=WIDTH, height=HEIGHT)
+    scene = Scene()
+    scene.add_camera(cam)
+    for fid, (dx, dy) in enumerate(((1, 1), (1, -1), (-1, 1), (-1, -1))):
+        t_cw = np.eye(4, dtype=np.float32)
+        t_cw[:3, 3] = (-dx * KF_OFFSET, -dy * KF_OFFSET, 0.0)  # camera centre (dx, dy, 0) * offset
+        image = rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)
+        scene.add_keyframe(Keyframe(fid=fid, camera=cam, t_cw=t_cw, image=image))
+    _, scene.cameras_extent = scene.nerfpp_norm()
+    extent = scene.cameras_extent
+    kfs = list(scene.keyframes.values())
+    cams = [kf.camera_matrices(device=device) for kf in kfs]
+    gts = [torch.from_numpy(kf.image).to(device) for kf in kfs]
+    log(f"[densify] scene: {len(kfs)} keyframes at offsets of +-{KF_OFFSET:g} m in x and y around the headline "
+        f"camera; nerfpp_norm cameras_extent {extent:.6f} m (spatial_lr_scale)")
+    cfg = RasterizeConfig(height=HEIGHT, width=WIDTH)
+    opt = OptimizationParams()
+    bg = torch.zeros(3, device=device)
+    state = {"it": 0}
+
+    def step(kf=None, **kw):
+        it = state["it"]
+        state["it"] += 1
+        kf = it % len(kfs) if kf is None else kf
+        return train_step(model, adam, cams[kf], gts[kf], None, bg, it, extent, cfg, opt, **kw)
+
+    def steps(kind, n, kf=None, **kw):
+        out, ms = [], []
+        for _ in range(n):
+            before = model.count
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = step(kf, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            out.append(m)
+            ms.append(ev[0].elapsed_time(ev[1]))
+            log(f"[densify] {kind} step at iteration {state['it'] - 1}: count {before} -> {model.count}, loss "
+                f"{float(m.loss):.6f}, {ms[-1]:.3f} ms on CUDA events")
+            if not math.isfinite(float(m.loss)):
+                failed.append(f"densify:{kind}-loss-not-finite")
+        return out, ms
+
+    def export_cache():  # keyframe 0's view
+        with torch.no_grad():
+            return render_state(model, cams[0], bg, cfg, export_binning_cache=True).binning_cache
+
+    ops = {}
+    _, ms_before = steps("fresh", CYCLE_STEPS)
+    cache_pre = export_cache()  # built before any surgery
+
+    # the densify: clone, split, prune; each branch must fire
+    n0 = model.count
+    grads = torch.where(model.denom > 0, model.xyz_grad_accum / model.denom, 0.0)
+    max_scale = model.scaling_act().detach().amax(1)
+    small = max_scale <= DENSIFY["percent_dense"] * extent
+    max_grad = DENSIFY["max_grad"]
+    sel = lambda g: (int((small & (grads >= g)).sum()), int((~small & (grads >= g)).sum()))
+    n_clone, n_split = sel(max_grad)
+    seen = model.denom > 0  # in view in some step
+    p90 = float(torch.quantile(grads[seen], 0.9))
+    half_offset = 1.1 * math.hypot(0.5, 0.5)  # cameras_extent of keyframes at +-0.5 m
+    tiny = max_scale <= DENSIFY["percent_dense"] * half_offset
+    log(f"[densify] at max_grad {max_grad:g}: clone selects {n_clone}, split {n_split}; 90th percentile of the "
+        f"mean gradient of the {int(seen.sum())} rows in view {p90:.6g}; {int(small.sum())} rows "
+        f"small enough to clone (max scale <= {DENSIFY['percent_dense'] * extent:.6g} m), "
+        f"{int((small & seen).sum())} of them in view; at +-0.5 m (extent {half_offset:.6f} m) {int(tiny.sum())} "
+        f"rows, {int((tiny & seen).sum())} of them in view of these keyframes")
+    if n_clone == 0 or n_split == 0:
+        max_grad = p90
+        log(f"[densify] a branch selects no row at 0.0002: max_grad {max_grad:.6g} (the 90th percentile), clone "
+            f"selects {sel(max_grad)[0]}, split {sel(max_grad)[1]}")
+    if min(sel(max_grad)) == 0:
+        # the largest mean gradient among the rows each branch may take: the
+        # least threshold at which both fire
+        tops = (float(grads[small].max()) if bool(small.any()) else 0.0,
+                float(grads[~small].max()) if bool((~small).any()) else 0.0)
+        if min(tops) > 0.0:
+            max_grad = min(p90, *tops)
+        log(f"[densify] a branch still selects no row: largest mean gradient of the rows small enough to clone "
+            f"{tops[0]:.6g}, of the others {tops[1]:.6g}; max_grad {max_grad:.6g}, clone selects "
+            f"{sel(max_grad)[0]}, split {sel(max_grad)[1]}")
+    kw = dict(DENSIFY, max_grad=max_grad, extent=extent)
+    noise = torch.randn((2, n0, 3), generator=torch.Generator(device=device).manual_seed(9), device=device)
+    cpu_model, cpu_adam = copy_state(model, adam, "cpu")
+    before_xyz = cpu_model.xyz.detach().clone()
+    counts, ms, n_sync, where = run_op(torch, lambda: densify_and_prune(model, adam, **kw, noise=noise))
+    ops["densify_and_prune"] = (ms, n_sync, where, n0, model.count)
+    t0 = time.perf_counter()
+    cpu_counts = densify_and_prune(cpu_model, cpu_adam, **kw, noise=noise.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    children = checks.split_children(model.xyz, before_xyz)
+    res = checks.surgery_check(model, adam, cpu_model, cpu_adam, children)
+    log(f"[densify] densify_and_prune: cloned {counts.cloned}, split {counts.split} (x2 children), pruned "
+        f"{counts.pruned}; count {n0} -> {model.count}; the CPU copy {cpu_counts} -> {cpu_model.count} in "
+        f"{cpu_ms:.1f} ms")
+    log(f"[densify] card against the CPU: rows {res['counts']}; not bit-equal: {res['not_equal'] or 'none'}; "
+        f"split children {res['computed']}: xyz scaled err {res['errs'].get('xyz', 0.0):.3g} ("
+        f"{res['rows_differ'].get('xyz', 0)} rows not bit-equal), scaling scaled err "
+        f"{res['errs'].get('scaling', 0.0):.3g} ({res['rows_differ'].get('scaling', 0)} rows not bit-equal); "
+        f"bar {checks.SURGERY_RTOL:g} of the largest magnitude")
+    if min(counts) == 0:
+        failed.append(f"densify:branch-did-not-fire-{counts}")
+    if tuple(counts) != tuple(cpu_counts) or not res["ok"]:
+        failed.append("densify:card-differs-from-cpu")
+    del cpu_model, cpu_adam
+
+    # the depth render through K1 against the plain blend
+    (depth, cov), ms, n_sync, where = run_op(torch, lambda: render_depth_state(model, cams[0], cfg))
+    ops["render_depth_state"] = (ms, n_sync, where, model.count, model.count)
+    d = checks.depth_check(model, cams[0], cfg, depth, cov)
+    log(f"[densify] render_depth_state through K3 and K1 against the plain blend: blended depth err "
+        f"{d['accum']:.3g} of max |z| {d['z_max']:.4f}, coverage err {d['coverage']:.3g}, depth err where "
+        f"covered {d['depth']:.3g} of max |z| (bars {K1_HEADLINE:g}, {K1_HEADLINE:g}, {4 * K1_HEADLINE:g}); "
+        f"covered pixels (coverage > 0.5) {d['covered']} of {WIDTH * HEIGHT}")
+    if not (d["accum"] <= K1_HEADLINE and d["coverage"] <= K1_HEADLINE and d["depth"] <= 4 * K1_HEADLINE):
+        failed.append("densify:depth-render-differs-from-plain")
+    if d["covered"] == 0:
+        failed.append("densify:depth-covers-nothing")
+
+    # the ingest: existing centres jittered under a tenth of a voxel, and
+    # points in the headline frustum at depths 2-10 m
+    half = INGEST_POINTS // 2
+    xyz = model.xyz.detach().cpu().numpy()
+    near = xyz[rng.integers(0, len(xyz), half)] + rng.uniform(-VOXEL_SIZE / 10, VOXEL_SIZE / 10, (half, 3))
+    z = rng.uniform(2.0, 10.0, INGEST_POINTS - half)
+    u, v = rng.uniform(0, WIDTH, len(z)), rng.uniform(0, HEIGHT, len(z))
+    far = np.stack([(u - WIDTH / 2) / 600.0 * z, (v - HEIGHT / 2) / 600.0 * z, z], -1)
+    pts = np.concatenate([near, far]).astype(np.float32)
+    cols = rng.uniform(0, 1, (INGEST_POINTS, 3)).astype(np.float32)
+    n1, it_ingest = model.count, state["it"]
+    kept, ms, n_sync, where = run_op(torch, lambda: increase_pcd(model, adam, pts, cols, iteration=it_ingest))
+    ops["increase_pcd"] = (ms, n_sync, where, n1, model.count)
+    log(f"[densify] increase_pcd of {INGEST_POINTS} points at iteration {it_ingest}: kept {kept}, deduped "
+        f"{INGEST_POINTS - kept}; count {n1} -> {model.count}")
+    if not (0 < kept < INGEST_POINTS and model.count == n1 + kept):
+        failed.append(f"densify:increase_pcd-kept-{kept}")
+
+    # reset_opacity keeps the count: a cache built just before it must raise
+    cache_reset = export_cache()
+    n2 = model.count
+    _, ms, n_sync, where = run_op(torch, lambda: reset_opacity(model, adam))
+    ops["reset_opacity"] = (ms, n_sync, where, n2, model.count)
+    op_max = float(model.opacity_act().detach().max())
+    try:
+        step(0, binning_cache=cache_reset)
+        failed.append("densify:stale-cache-after-reset-accepted")
+        log("[densify] a cache built before reset_opacity was accepted after it")
+    except ValueError as e:
+        log(f"[densify] reset_opacity: count {n2} -> {model.count}, max opacity {op_max:.6f}; a cache built "
+            f"before it raises: {e}")
+        state["it"] -= 1
+        if "generation" not in str(e) or model.count != n2:
+            failed.append("densify:stale-cache-after-reset-not-caught-by-its-generation")
+
+    # prune_young at an iteration that makes the ingested rows young
+    n3 = model.count
+    it_young = it_ingest + STABLE_NUM_ITER - 1
+    dropped, ms, n_sync, where = run_op(torch, lambda: prune_young(model, adam, it_young, STABLE_NUM_ITER))
+    ops["prune_young"] = (ms, n_sync, where, n3, model.count)
+    log(f"[densify] prune_young at iteration {it_young}, stable_num_iter {STABLE_NUM_ITER}: dropped {dropped}; "
+        f"count {n3} -> {model.count}")
+    if dropped != kept:
+        failed.append(f"densify:prune_young-dropped-{dropped}-not-the-{kept}-ingested")
+    try:
+        step(0, binning_cache=cache_pre)
+        failed.append("densify:pre-surgery-cache-accepted")
+        log("[densify] the pre-surgery cache was accepted")
+    except ValueError as e:
+        log(f"[densify] the cache built before the densify ({cache_pre.num_gaussians} Gaussians, generation "
+            f"{cache_pre.generation}; now {model.count}, generation {model.generation}) raises: {e}")
+        state["it"] -= 1
+
+    # train on at the new count: fresh steps, then the cadence on one view
+    _, ms_after = steps("fresh", 3)
+    m, cache = step(0, export_binning_cache=True)
+    log(f"[densify] export step on keyframe 0: count {model.count}, loss {float(m.loss):.6f}, cache of "
+        f"{cache.gid.shape[0]} pairs at generation {cache.generation}")
+    if not math.isfinite(float(m.loss)):
+        failed.append("densify:export-loss-not-finite")
+    steps("cached", 3, 0, binning_cache=cache)
+    if not all(bool(torch.isfinite(p).all()) for p in model.params().values()):
+        failed.append("densify:parameters-not-finite")
+
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name, (ms, n_sync, where, a, b) in ops.items():
+        log(f"[densify] {name}: {ms:.2f} ms on the host clock (call to device completion), {n_sync} host syncs "
+            f"at {where}; count {a} -> {b}; on {smi}")
+    med = lambda v: float(np.median(v))
+    log(f"[densify] fresh step median before the cycle {med(ms_before):.3f} ms ({n0} Gaussians, {CYCLE_STEPS} "
+        f"steps), after {med(ms_after):.3f} ms ({model.count} Gaussians, 3 steps), CUDA events, on {smi}")
+    log(f"[densify] launches over phase 8: {launches}")
+    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export"):
+        if launches[name] == 0:
+            failed.append(f"densify:{name}-not-launched")
+    log(f"[densify] phase 8 wall time {time.perf_counter() - t_phase:.1f} s")
+    return launches, failed
 
 
 def main() -> int:
@@ -1122,6 +1363,10 @@ def main() -> int:
         # bit-equal at these inputs above, so the error is 0
         time_entry(name, c["kern"], c["plain"], c["shapes"], bench_launches[name], 0.0, bound_ms(c["bytes"]),
                    c["library"])
+
+    # ---- 8. the densify cycle at the headline
+    _, f = drive_densify_cycle(torch, device, smi)
+    failed += f
 
     torch.cuda.synchronize()
     if failed:

@@ -6,7 +6,8 @@
 prefix `[:count]` and returns the port's counterpart. `from_jax_cache`
 turns a JAX `BinningCache` into the port's per-tile cache, and
 `from_jax_pairs` a one-tile-per-group `SortedPairs` into the port's
-binning. No jax is needed.
+binning. `copy_state` copies a map and its Adam state within the port. No
+jax is needed.
 """
 
 from __future__ import annotations
@@ -14,12 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.gaussian_model import GaussianModel
+from .models.gaussian_model import STATS, GaussianModel
 from .models.optimizer import PARAM_GROUPS, AdamState
 from .ops.projection import tile_grid
 from .ops.tile_blend import BinningCache
-
-_STATS = ("max_radii2d", "xyz_grad_accum", "denom", "exist_since_iter")
 
 
 def from_jax_state(arrays: dict[str, np.ndarray], count: int, device="cuda") -> GaussianModel:
@@ -30,7 +29,7 @@ def from_jax_state(arrays: dict[str, np.ndarray], count: int, device="cuda") -> 
         {k: torch.tensor(np.asarray(arrays[k])[:count], dtype=torch.float32, device=device)
          for k in PARAM_GROUPS}
     )
-    for k in _STATS:
+    for k in STATS:
         if k in arrays:
             buf = getattr(model, k)
             buf.copy_(torch.tensor(np.asarray(arrays[k])[:count], dtype=buf.dtype, device=device))
@@ -53,8 +52,20 @@ def from_jax_adam(
 def to_numpy_state(model: GaussianModel) -> dict[str, np.ndarray]:
     """The model's parameters and statistics as numpy arrays (JAX field names)."""
     out = {k: p.detach().cpu().numpy() for k, p in model.params().items()}
-    out.update({k: getattr(model, k).cpu().numpy() for k in _STATS})
+    out.update({k: getattr(model, k).cpu().numpy() for k in STATS})
     return out
+
+
+def copy_state(model: GaussianModel, adam: AdamState, device=None) -> tuple[GaussianModel, AdamState]:
+    """An independent copy of the map and its Adam state, on `device` (the
+    model's own by default), at the model's generation."""
+    dev = model.xyz.device if device is None else device
+    out = GaussianModel({k: p.detach().to(dev, copy=True) for k, p in model.params().items()})
+    for k in STATS:
+        setattr(out, k, getattr(model, k).to(dev, copy=True))
+    out.generation = model.generation
+    moved = lambda d: {k: v.to(dev, copy=True) for k, v in d.items()}
+    return out, AdamState(m=moved(adam.m), v=moved(adam.v), step=adam.step)
 
 
 def from_jax_pairs(ranges: np.ndarray, pairs: np.ndarray, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:

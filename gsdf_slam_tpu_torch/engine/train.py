@@ -6,6 +6,8 @@ or exports its binning as a cache (`export_binning_cache=True`), or trains
 through such a cache (`binning_cache=`): the JAX mapper's cadence after
 densification is one export step and then cached steps. The live
 hyperparameters are plain floats: eager PyTorch has no recompile to avoid.
+`render_depth_state` is the expected-depth render the mapper's
+inactive-geometry densify reads.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def render_state(
     export_binning_cache: bool = False,
 ) -> RenderOutput:
     """GaussianRenderer::render (gaussian_renderer.cpp:23-141): activations
-    and the rasterizer call (the separate_sh dc/rest path)."""
+    and the rasterizer call (the separate_sh dc/rest path). A cache is
+    stamped with, and checked against, the model's generation."""
     return render(
         model.xyz,
         model.scaling_act(),
@@ -56,7 +59,34 @@ def render_state(
         active_sh_degree=active_sh_degree,
         binning_cache=binning_cache,
         export_binning_cache=export_binning_cache,
+        generation=model.generation,
     )
+
+
+@torch.no_grad()
+def render_depth_state(
+    model: GaussianModel, cam: CameraMatrices, cfg: RasterizeConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expected-depth render (JAX `render_depth_state`): each Gaussian's
+    camera-space z, the view's row 2 applied to its centre, blended as its
+    colour in all three channels over a black background (the reference's
+    override_color slot, gaussian_renderer.cpp:79-115), through the same
+    binning and blend as a training render.
+
+    Returns (depth [H, W], coverage [H, W]): coverage = 1 - final T, depth
+    = blended z / max(coverage, 1e-6), meaningful only where coverage is
+    away from 0."""
+    v = cam.view
+    xyz = model.xyz
+    z = v[2, 0] * xyz[:, 0] + v[2, 1] * xyz[:, 1] + v[2, 2] * xyz[:, 2] + v[2, 3]
+    out = render(
+        xyz, model.scaling_act(), model.rotation_act(), model.opacity_act()[:, 0], model.f_dc,
+        model.f_rest, cam, torch.zeros(3, device=xyz.device), cfg,
+        colors_precomp=z[:, None].expand(-1, 3),
+    )
+    coverage = 1.0 - out.final_t
+    depth = out.image[..., 0] / torch.clamp_min(coverage, 1e-6)
+    return depth, coverage
 
 
 def train_step(
@@ -79,8 +109,9 @@ def train_step(
 
     With `export_binning_cache=True` it returns (metrics, the BinningCache
     of this step's binning), for `binning_cache=` on later steps of the same
-    view; the cache is valid only for this model's Gaussians and this image
-    size, and a mismatch raises."""
+    view; the cache is valid only for this model's Gaussians (its count
+    and generation: any surgery starts a new one) and this image size, and
+    a mismatch raises."""
     params = model.params()
     # zero screen-space offset whose gradient feeds densification (JAX :180-183)
     m2d0 = torch.zeros((model.count, 2), device=model.xyz.device, requires_grad=True)

@@ -49,6 +49,14 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(1.0 / torch.mean((a - b) ** 2))
 
 
+def psnr_gaussian_splatting(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """20*log10(1/sqrt(mse)) per leading index, then the mean
+    (loss_utils.h:43-47)."""
+    d = (a - b).reshape(a.shape[0], -1)
+    mse = torch.mean(d * d, dim=1)
+    return torch.mean(20.0 * torch.log10(1.0 / torch.sqrt(mse)))
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Mean SSIM map (loss_utils.h:76-124)."""
     mu1 = _filter(img1, window_size)

@@ -113,13 +113,16 @@ def preprocess(
     scale_modifier: float = 1.0,
     means2d_offset: torch.Tensor | None = None,
     active_sh_degree: int | None = None,
+    colors_precomp: torch.Tensor | None = None,
 ) -> Preprocessed:
     """Preprocess every Gaussian of the map.
 
     `means2d_offset` is an all-zeros [P, 2] tensor added to the projected
     pixel means; its gradient is the screen-space positional gradient that
     densification reads (the reference's retained screenspace_points grad,
-    gaussian_renderer.cpp:41-48).
+    gaussian_renderer.cpp:41-48). `colors_precomp` [P, 3], where given,
+    replaces the SH colours as they are, unclamped (the reference's
+    override_color slot).
     """
     gw, gh = tile_grid(width, height)
     focal_x = width / (2.0 * cam.tanfovx)
@@ -188,7 +191,10 @@ def preprocess(
     valid_radii = valid & (area3 > 0)
     valid = valid & (area > 0)
 
-    colors = eval_sh_color(dc, sh_rest, means3d, cam.campos, sh_degree, active_sh_degree)
+    if colors_precomp is None:
+        colors = eval_sh_color(dc, sh_rest, means3d, cam.campos, sh_degree, active_sh_degree)
+    else:
+        colors = colors_precomp
 
     radii = torch.where(valid_radii, rf, torch.zeros_like(rf)).to(torch.int32)
     tiles_touched = torch.where(valid, area, zero_i).to(torch.int32)

@@ -63,12 +63,18 @@ class RenderOutput(NamedTuple):
     binning_cache: BinningCache | None = None  # set by an export render
 
 
-def _check_cache(cache: BinningCache, num_gaussians: int, cfg: RasterizeConfig) -> None:
-    """Raise unless `cache` was built for this many Gaussians at this image
-    size: a cache is only valid for the model and image it was built from."""
+def _check_cache(cache: BinningCache, num_gaussians: int, generation: int, cfg: RasterizeConfig) -> None:
+    """Raise unless `cache` was built for this many Gaussians of this model
+    generation at this image size: a cache is only valid for the model and
+    image it was built from, and any surgery (which may keep the count)
+    starts a new generation."""
     if cache.num_gaussians != num_gaussians:
         raise ValueError(
             f"binning cache built for {cache.num_gaussians} Gaussians, used with {num_gaussians}"
+        )
+    if cache.generation != generation:
+        raise ValueError(
+            f"binning cache built at model generation {cache.generation}, used at {generation}"
         )
     if tuple(cache.image_size) != (cfg.height, cfg.width):
         raise ValueError(
@@ -84,21 +90,23 @@ def render_preprocessed(
     cfg: RasterizeConfig,
     binning_cache: BinningCache | None = None,
     export_binning_cache: bool = False,
+    generation: int = 0,
 ) -> RenderOutput:
     """Binning + blend + composite on a preprocessed payload; or the blend
     through `binning_cache`; or, with `export_binning_cache`, a fresh render
-    that also returns its (pruned) cache."""
+    that also returns its (pruned) cache, stamped with `generation` (the
+    model's surgery count)."""
     gw, gh = cfg.grid
     cache_out = None
     if binning_cache is not None:
         if export_binning_cache:
             raise ValueError("binning_cache and export_binning_cache exclude each other")
-        _check_cache(binning_cache, pre.means2d.shape[0], cfg)
+        _check_cache(binning_cache, pre.means2d.shape[0], generation, cfg)
         accum, log_t_eff, total = blend_tiles_cached(pre, opacities, binning_cache, grid_w=gw, grid_h=gh)
     elif export_binning_cache:
         accum, log_t_eff, total, cache_out = blend_tiles_export(
             pre, opacities, grid_w=gw, grid_h=gh, margin=cfg.cache_prune_margin,
-            image_size=(cfg.height, cfg.width),
+            image_size=(cfg.height, cfg.width), generation=generation,
         )
     else:
         accum, log_t_eff, total = blend_tiles_fresh(pre, opacities, grid_w=gw, grid_h=gh)
@@ -124,6 +132,8 @@ def render(
     active_sh_degree: int | None = None,
     binning_cache: BinningCache | None = None,
     export_binning_cache: bool = False,
+    colors_precomp: torch.Tensor | None = None,
+    generation: int = 0,
 ) -> RenderOutput:
     """Render one view (GaussianRasterizer::forward,
     gaussian_rasterizer.h:110-132) from activated parameters [P, ...].
@@ -131,17 +141,18 @@ def render(
     `export_binning_cache=True` also returns this render's binning as
     `RenderOutput.binning_cache`, pruned to its live pairs unless
     `cfg.cache_prune_margin` is 0; `binning_cache=` renders through such a
-    cache with no binning. A cache is valid only for the model and image
-    size it was built from; anything else raises."""
+    cache with no binning. A cache is valid only for the model (count and
+    `generation`) and image size it was built from; anything else raises.
+    `colors_precomp` [P, 3] replaces the SH colours, unclamped."""
     pre = preprocess(
         means3d, scales, quats, opacities, dc, sh_rest, cam,
         width=cfg.width, height=cfg.height, sh_degree=cfg.sh_degree,
         scale_modifier=cfg.scale_modifier, means2d_offset=means2d_offset,
-        active_sh_degree=active_sh_degree,
+        active_sh_degree=active_sh_degree, colors_precomp=colors_precomp,
     )
     return render_preprocessed(
         pre, opacities, bg, cfg, binning_cache=binning_cache,
-        export_binning_cache=export_binning_cache,
+        export_binning_cache=export_binning_cache, generation=generation,
     )
 
 

@@ -1,8 +1,9 @@
-"""Spherical-harmonics colour evaluation, degrees 0-3.
+"""Spherical-harmonics colour evaluation.
 
 Port of `gsdf_slam_tpu/ops/sh.py` (computeColorFromSH, forward.cu:32-101):
 DC term plus degree-1..3 terms from the "rest" coefficients, +0.5 offset,
-clamped at 0. Autograd supplies the backward, as it does in JAX.
+clamped at 0. Autograd supplies the backward, as it does in JAX. Degree 4
+exists only on the `eval_sh` surface (include/sh_utils.h:64-136).
 """
 
 from __future__ import annotations
@@ -27,7 +28,18 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
-MAX_SH_DEGREE = 3
+# degree 4 (include/sh_utils.h:52-61), for eval_sh only
+SH_C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
 
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
@@ -35,11 +47,17 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / SH_C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """SH2RGB = sh * C0 + 0.5 (include/sh_utils.h:143)."""
+    return sh * SH_C0 + 0.5
+
+
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """Real SH basis [..., (degree+1)**2] for unit directions, in the
-    reference's coefficient order (forward.cu:64-85)."""
-    if not 0 <= degree <= MAX_SH_DEGREE:
-        raise ValueError(f"degree must be in [0, {MAX_SH_DEGREE}], got {degree}")
+    reference's coefficient order (forward.cu:64-85; degree 4 as
+    include/sh_utils.h:121-134)."""
+    if not 0 <= degree <= 4:
+        raise ValueError(f"degree must be in [0, 4], got {degree}")
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
     terms = [SH_C0 * torch.ones_like(x)]
     if degree > 0:
@@ -64,7 +82,32 @@ def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
             SH_C3[5] * z * (xx - yy),
             SH_C3[6] * x * (xx - 3.0 * yy),
         ]
+    if degree > 3:
+        terms += [
+            SH_C4[0] * xy * (xx - yy),
+            SH_C4[1] * yz * (3.0 * xx - yy),
+            SH_C4[2] * xy * (7.0 * zz - 1.0),
+            SH_C4[3] * yz * (7.0 * zz - 3.0),
+            SH_C4[4] * (zz * (35.0 * zz - 30.0) + 3.0),
+            SH_C4[5] * xz * (7.0 * zz - 3.0),
+            SH_C4[6] * (xx - yy) * (7.0 * zz - 1.0),
+            SH_C4[7] * xz * (xx - 3.0 * yy),
+            SH_C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)),
+        ]
     return torch.stack(terms, dim=-1)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The reference's eval_sh (include/sh_utils.h:64-136), degrees 0-4, with
+    no +0.5 offset and no clamp: sh [..., C, K >= (deg+1)**2] channel-major,
+    dirs [..., 3] unit directions; returns [..., C]."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"deg must be in [0, 4], got {deg}")
+    coeff = (deg + 1) ** 2
+    if sh.shape[-1] < coeff:
+        raise ValueError(f"sh has {sh.shape[-1]} coeffs, need >= {coeff}")
+    basis = sh_basis(dirs, deg)
+    return torch.sum(sh[..., :coeff] * basis[..., None, :], dim=-1)
 
 
 def eval_sh_color(

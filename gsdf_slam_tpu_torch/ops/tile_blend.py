@@ -131,7 +131,8 @@ class BinningCache(NamedTuple):
     The pair -> Gaussian map and each tile's depth order are frozen at the
     export step; every cached step gathers fresh per-Gaussian payload, so
     values are exact and only membership and order are stale. The cache
-    is valid only for the model (`num_gaussians`) and image size it was
+    is valid only for the model (`num_gaussians` and `generation`, the
+    model's surgery count when the cache was built) and image size it was
     built from.
 
     The TPU cache also holds `kept_bounds` (an input of its sorted fold),
@@ -145,10 +146,12 @@ class BinningCache(NamedTuple):
     total_pairs: int  # pre-cull pair count of the export step
     num_gaussians: int
     image_size: tuple[int, int]  # (height, width)
+    generation: int = 0  # GaussianModel.generation at the export step
 
 
 def build_pruned_cache(
-    binned: Binned, keep: torch.Tensor | None, *, num_gaussians: int, image_size: tuple[int, int]
+    binned: Binned, keep: torch.Tensor | None, *, num_gaussians: int, image_size: tuple[int, int],
+    generation: int = 0,
 ) -> BinningCache:
     """The cache of an export step, compacted to its kept pairs in their
     order (`build_pruned_cache`, pallas_blend_grouped.py:476-574); with
@@ -170,7 +173,7 @@ def build_pruned_cache(
         gid = gid[torch.nonzero(keep).squeeze(1)]
     return BinningCache(
         ranges=ranges, gid=gid, total_pairs=binned.total_pairs,
-        num_gaussians=num_gaussians, image_size=tuple(image_size),
+        num_gaussians=num_gaussians, image_size=tuple(image_size), generation=generation,
     )
 
 
@@ -225,7 +228,8 @@ def blend_tiles_fresh(pre, opacities, *, grid_w: int, grid_h: int):
     return FreshBlend.apply(*_fresh_args(pre, opacities), grid_w, grid_h, None)
 
 
-def blend_tiles_export(pre, opacities, *, grid_w: int, grid_h: int, margin: float, image_size):
+def blend_tiles_export(pre, opacities, *, grid_w: int, grid_h: int, margin: float, image_size,
+                       generation: int = 0):
     """The fresh blend of an export step (`_make_fused_blend(export=True)`):
     (accum, log_t_eff, total_pairs, BinningCache). With margin > 0 it runs
     K4 and prunes the cache to the pairs K4 keeps; with margin 0 it runs
@@ -234,7 +238,7 @@ def blend_tiles_export(pre, opacities, *, grid_w: int, grid_h: int, margin: floa
         *_fresh_args(pre, opacities), grid_w, grid_h, float(margin)
     )
     cache = build_pruned_cache(
-        binned, keep, num_gaussians=pre.means2d.shape[0], image_size=image_size
+        binned, keep, num_gaussians=pre.means2d.shape[0], image_size=image_size, generation=generation,
     )
     return accum, log_t_eff, total, cache
 

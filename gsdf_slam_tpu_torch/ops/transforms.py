@@ -65,6 +65,16 @@ def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1.0 - x))
 
 
+def focal_to_fov(focal: float, pixels: int) -> float:
+    """graphics_utils.h focal2fov."""
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+def fov_to_focal(fov: float, pixels: int) -> float:
+    """graphics_utils.h fov2focal."""
+    return pixels / (2.0 * math.tan(fov * 0.5))
+
+
 def world_to_view(q: np.ndarray, t: np.ndarray) -> np.ndarray:
     """W2C 4x4 [R|t; 0 1] from a pose quaternion (w,x,y,z) and translation
     (getWorld2View2, gaussian_keyframe.cpp:180-202). Host-side numpy."""
@@ -146,3 +156,14 @@ class CameraMatrices:
 def ndc_to_pix(v: torch.Tensor, size: int) -> torch.Tensor:
     """auxiliary.h:33-36."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def nerfpp_norm(cam_centers: np.ndarray) -> tuple[np.ndarray, float]:
+    """Scene extent from camera centres (gaussian_scene.cpp:79-121):
+    (translate, radius), the negated centroid and 1.1 times the largest
+    distance from it to a centre. Host-side numpy."""
+    centers = np.asarray(cam_centers, dtype=np.float64)
+    centroid = centers.mean(axis=0)
+    dists = np.linalg.norm(centers - centroid[None, :], axis=1)
+    radius = float(dists.max()) * 1.1 if len(centers) else 1.0
+    return (-centroid).astype(np.float32), radius

@@ -1,8 +1,9 @@
 """The probe kernels, and the bucket checkpoints of K1 and K4, against
 their plain versions: the bars and the comparisons (and the count of
-checkpoint words K1 writes, and the keep bytes K4 writes), shared by
-chip_smoke.py and tests/test_torch_cuda.py so that each bar is defined
-once.
+checkpoint words K1 writes, and the keep bytes K4 writes); the depth
+render through K1 against the plain blend; the model surgery on the card
+against the same surgery on the CPU. Shared by chip_smoke.py and
+tests/test_torch_cuda.py so that each bar is defined once.
 
 Bars, with their reasons:
 
@@ -22,6 +23,21 @@ Bars, with their reasons:
   tests/test_pallas_blend.py); two launches of the backward bit-equal;
 - the kernels that copy 32-bit words or add integers (`expand_gather` and
   the pair-table kernels) bit-equal.
+
+The depth render blends each Gaussian's camera-space z as its colour, so
+K1's colour bars scale with max |z| of the Gaussians it renders: the
+blended depth (the image) is held to the caller's colour bar times max
+|z|, coverage to the bar, and depth = blended / coverage where coverage >
+0.5 to the bar both terms give, 4 x bar x max |z|.
+
+Surgery on the card against the CPU from one state with one noise draw:
+the counts exact; every parameter, Adam moment and statistic bit-equal,
+except the values a surgery computes with exp, log, rsqrt or a division
+by a constant (the split children's xyz and scaling, the new points'
+parameters, the reset opacity), where the card's math library and the
+CPU's may differ in the last bit: those within SURGERY_RTOL of the
+largest magnitude among them (the 1e-6 of the CPU parity tests against
+the JAX package).
 
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
@@ -45,6 +61,7 @@ FLOOR_RTOL = 1e-5
 FLIP_LOG_T = 1e-3
 MAX_FLIPS = 80
 FIELDS = {"means2d": slice(0, 2), "conics": slice(2, 5), "opacity": slice(5, 6), "colors": slice(6, 9)}
+SURGERY_RTOL = 1e-6
 
 
 def bit_equal(got, want) -> bool:
@@ -180,3 +197,90 @@ def log1p_live_mismatches() -> int:
     out = torch.zeros(1, dtype=torch.int32, device="cuda")
     kernels.launch("gsdf_log1p_live_mismatches", out.data_ptr())
     return int(out.item())
+
+
+def depth_check(model, cam, cfg, depth, cov) -> dict:
+    """`render_depth_state`'s outputs (`depth`, `cov`; K3 and K1 on a CUDA
+    model) against the same depth render binned and blended by the plain
+    versions of K3 and K1 on the same device: the blended depth's max abs
+    error over max |z| of the rendered Gaussians (`accum`), the coverage's
+    (`coverage`), the depth's where both coverages exceed 0.5 over max |z|
+    (`depth`), the covered pixels and max |z|. Launches no kernel."""
+    from ..ops import binning
+    from ..ops.blend import assemble_image, blend_fwd_plain
+    from ..ops.projection import preprocess
+
+    gw, gh = cfg.grid
+    with torch.no_grad():
+        v, xyz = cam.view, model.xyz
+        z = v[2, 0] * xyz[:, 0] + v[2, 1] * xyz[:, 1] + v[2, 2] * xyz[:, 2] + v[2, 3]
+        op = model.opacity_act()[:, 0]
+        pre = preprocess(xyz, model.scaling_act(), model.rotation_act(), op, model.f_dc, model.f_rest, cam,
+                         width=cfg.width, height=cfg.height, sh_degree=cfg.sh_degree,
+                         colors_precomp=z[:, None].expand(-1, 3))
+        keys, order, pair_gid, _ = binning.expand_and_sort(pre.depths, pre.rect_min, pre.rect_max,
+                                                           pre.tiles_touched, pre.means2d, pre.conics, op,
+                                                           grid_w=gw)
+        table = binning.payload_table(pre.means2d, pre.conics, op, pre.colors)
+        ranges, _, payload = binning.tile_ranges_pack_plain(keys, order, pair_gid, table, gw * gh)
+        acc, lte, _, _ = blend_fwd_plain(ranges, payload, gw, gh)
+        img, final_t = assemble_image(acc, lte, torch.zeros(3, device=xyz.device), grid_w=gw, grid_h=gh,
+                                      width=cfg.width, height=cfg.height)
+        cov_p = 1.0 - final_t
+        depth_p = img[..., 0] / torch.clamp_min(cov_p, 1e-6)
+        z_max = float(z[pre.tiles_touched > 0].abs().max())
+        both = (cov > 0.5) & (cov_p > 0.5)
+        blended = depth * torch.clamp_min(cov, 1e-6)
+        return dict(
+            accum=float((blended - img[..., 0]).abs().max()) / z_max,
+            coverage=float((cov - cov_p).abs().max()),
+            depth=float((depth - depth_p)[both].abs().max()) / z_max if bool(both.any()) else 0.0,
+            covered=int((cov > 0.5).sum()), z_max=z_max,
+        )
+
+
+def split_children(xyz_after, xyz_before) -> torch.Tensor:
+    """Rows of `xyz_after` whose centre (its three float32 words) no row of
+    `xyz_before` has: the children a split made. A CPU bool tensor."""
+    import numpy as np
+
+    words = lambda x: np.ascontiguousarray(x.detach().cpu().numpy()).view(np.dtype((np.void, 12))).ravel()
+    return torch.from_numpy(~np.isin(words(xyz_after), words(xyz_before)))
+
+
+def surgery_check(got_model, got_adam, want_model, want_adam, computed, fields=("xyz", "scaling")) -> dict:
+    """A surgery's result (`got`, on any device) against the same surgery's
+    (`want`, on the CPU) from one state and one noise draw. The rows
+    `computed` (a CPU bool mask: the split children, or the new points) of
+    `fields` are held to SURGERY_RTOL of the largest magnitude among them;
+    everything else must be bit-equal. Returns the counts, the names not
+    bit-equal, each field's scaled error and rows not bit-equal over the
+    computed rows, and `ok`."""
+    from ..models.gaussian_model import STATS
+    from ..models.optimizer import PARAM_GROUPS
+
+    out = dict(counts=(got_model.count, want_model.count), not_equal=[], errs={}, rows_differ={},
+               computed=int(computed.sum()), ok=False)
+    if got_model.count != want_model.count:
+        out["not_equal"].append("count")
+        return out
+    for k in PARAM_GROUPS:
+        got, want = getattr(got_model, k).detach().cpu(), getattr(want_model, k).detach()
+        if k in fields:
+            g, w = got[computed].reshape(int(computed.sum()), -1), want[computed].reshape(int(computed.sum()), -1)
+            scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+            out["errs"][k] = float((g - w).abs().max()) / scale if w.numel() else 0.0
+            out["rows_differ"][k] = int((g.view(torch.int32) != w.view(torch.int32)).any(1).sum())
+            got, want = got[~computed], want[~computed]
+        if not bit_equal(got, want):
+            out["not_equal"].append(k)
+        for moment, a, b in (("m", got_adam.m, want_adam.m), ("v", got_adam.v, want_adam.v)):
+            if not bit_equal(a[k].cpu(), b[k]):
+                out["not_equal"].append(f"{moment}.{k}")
+    for k in STATS:
+        if not bit_equal(getattr(got_model, k).cpu(), getattr(want_model, k)):
+            out["not_equal"].append(k)
+    if got_adam.step != want_adam.step:
+        out["not_equal"].append("step")
+    out["ok"] = not out["not_equal"] and all(e <= SURGERY_RTOL for e in out["errs"].values())
+    return out

@@ -6,19 +6,24 @@ also runs where jax is not installed:
     GSDF_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 from torch_port_helpers import (
-    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, export_binning, pair2_binning, scene_arrays,
-    synthetic_binning, torch_args, window_edge_case,
+    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, export_binning, new_points, pair2_binning, scene_arrays,
+    surgery_extent, surgery_model, synthetic_binning, torch_args, window_edge_case,
 )
 
 from gsdf_slam_tpu_torch import kernels
+from gsdf_slam_tpu_torch.config import OptimizationParams
+from gsdf_slam_tpu_torch.convert import copy_state
+from gsdf_slam_tpu_torch.engine import render_depth_state, train_step
+from gsdf_slam_tpu_torch.models import gaussian_model as surgery
 from gsdf_slam_tpu_torch.ops import (
     CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, render, tile_blend,
 )
 from gsdf_slam_tpu_torch.probes import checks, expand_probe, microbench
-from gsdf_slam_tpu_torch.probes.scene import WALL_SIZE, wall_scene
+from gsdf_slam_tpu_torch.probes.scene import HEIGHT, WALL_SIZE, WIDTH, headline_camera, wall_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -426,3 +431,87 @@ def test_xpose_cumsum_five_launches_agree(dev):
     torch.cuda.synchronize()
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
     assert torch.equal(outs[0], pair_table.xpose_cumsum_plain(x))
+
+
+# ---- model surgery on the card against the CPU, the depth render through
+# K1, and a training step after each surgery (probes/checks.py's bars)
+
+SURGERY_KINDS = ("densify_and_prune", "increase_pcd", "reset_opacity", "prune_young")
+
+
+def _surgery(kind, model, adam, noise, extent, points):
+    """Run one surgery in place; returns the rows and fields it computes
+    (the rest it only moves) as (CPU bool mask, field names)."""
+    if kind == "densify_and_prune":
+        before = model.xyz.detach().clone()
+        counts = surgery.densify_and_prune(model, adam, max_grad=0.0002, min_opacity=0.005, extent=extent,
+                                           max_screen_size=20, noise=noise.to(model.xyz.device))
+        assert counts.cloned > 0 and counts.split > 0 and counts.pruned > 0, counts
+        return checks.split_children(model.xyz, before), ("xyz", "scaling")
+    if kind == "increase_pcd":
+        n = model.count
+        kept = surgery.increase_pcd(model, adam, *points, iteration=60)
+        assert 0 < kept < len(points[0])
+        return torch.arange(model.count) >= n, ("xyz", "f_dc", "opacity", "scaling")
+    if kind == "reset_opacity":
+        surgery.reset_opacity(model, adam)
+        return torch.ones(model.count, dtype=torch.bool), ("opacity",)
+    dropped = surgery.prune_young(model, adam, 45, 10)
+    assert 0 < dropped < model.count
+    return torch.zeros(model.count, dtype=torch.bool), ()
+
+
+@pytest.mark.parametrize("kind", SURGERY_KINDS)
+@pytest.mark.parametrize("size", ["64x64", "50k"])
+def test_surgery_on_the_card_matches_the_cpu(dev, size, kind):
+    """One surgery from one state (and one noise draw, from a seeded CUDA
+    generator) on the card and on the CPU; then a fresh training step at
+    the new count on the card, finite, through K3, K1 and K2."""
+    cpu_model, cpu_adam = surgery_model(size)
+    model, adam = copy_state(cpu_model, cpu_adam, dev)
+    noise = torch.randn((2, model.count, 3), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    extent = surgery_extent(cpu_model)
+    points = new_points(cpu_model)
+    gen = model.generation
+    computed, fields = _surgery(kind, model, adam, noise, extent, points)
+    want, _ = _surgery(kind, cpu_model, cpu_adam, noise.cpu(), extent, points)
+    torch.cuda.synchronize()
+    assert torch.equal(computed, want)
+    res = checks.surgery_check(model, adam, cpu_model, cpu_adam, computed, fields)
+    assert res["ok"], res
+    assert model.generation > gen
+
+    cam = _camera(dev) if size == "64x64" else headline_camera(dev)
+    h, w = (64, 64) if size == "64x64" else (HEIGHT, WIDTH)
+    gt = torch.rand((h, w, 3), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    n = model.count
+    kernels.reset_launch_counts()
+    m = train_step(model, adam, cam, gt, None, torch.zeros(3, device=dev), 50, 1.0,
+                   RasterizeConfig(height=h, width=w), OptimizationParams())
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m.loss)) and model.count == n == m.count
+    assert all(kernels.LAUNCHES[k] == 1 for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd"))
+    assert all(bool(torch.isfinite(p).all()) for p in model.params().values())
+
+
+@pytest.mark.parametrize("scene", ["64x64", "wall"])
+def test_render_depth_state_through_k1_matches_plain(dev, scene):
+    """render_depth_state on the card (K3, K1) against the same render
+    blended by the plain K1, at the 64x64 bar scaled by max |z|."""
+    if scene == "64x64":
+        model, cam, size = surgery_model("64x64")[0].to(dev), _camera(dev), 64
+    else:
+        args, cam = wall_scene(dev)
+        means, scales, quats, opac, dc, rest = args
+        model = surgery.GaussianModel({"xyz": means, "f_dc": dc, "f_rest": rest,
+                                       "opacity": torch.log(opac / (1 - opac))[:, None],
+                                       "scaling": torch.log(scales), "rotation": quats})
+        size = WALL_SIZE
+    cfg = RasterizeConfig(height=size, width=size)
+    kernels.reset_launch_counts()
+    depth, cov = render_depth_state(model, cam, cfg)
+    assert kernels.LAUNCHES["blend_fwd"] == 1 and kernels.LAUNCHES["tile_ranges_pack"] == 1
+    res = checks.depth_check(model, cam, cfg, depth, cov)
+    assert res["covered"] > 0, res
+    assert res["accum"] <= checks.FWD_SMALL and res["coverage"] <= checks.FWD_SMALL, res
+    assert res["depth"] <= 4 * checks.FWD_SMALL, res

@@ -112,3 +112,28 @@ def test_from_jax_state_round_trip():
     for k in PARAM_GROUPS:
         np.testing.assert_array_equal(adam.m[k].numpy(), m[k][:20])
         np.testing.assert_array_equal(adam.v[k].numpy(), v[k][:20])
+
+
+def test_copy_state_is_independent():
+    """copy_state copies every parameter, statistic and moment, and the
+    generation; the copy shares no storage with the original."""
+    from gsdf_slam_tpu_torch.convert import copy_state
+    from gsdf_slam_tpu_torch.models.gaussian_model import STATS
+
+    rng = np.random.default_rng(9)
+    model = GaussianModel.create_from_pcd(rng.uniform(-1, 1, (12, 3)), rng.uniform(0, 1, (12, 3)), device="cpu")
+    model.denom.fill_(2.0)
+    model.generation = 4
+    adam = AdamState.init(model.params())
+    adam.m["xyz"] += 1.0
+    adam.step = 3
+    m2, a2 = copy_state(model, adam)
+    assert m2.generation == 4 and a2.step == 3
+    for k in PARAM_GROUPS:
+        assert torch.equal(getattr(m2, k), getattr(model, k))
+        assert getattr(m2, k).data_ptr() != getattr(model, k).data_ptr()
+        assert torch.equal(a2.m[k], adam.m[k]) and a2.m[k].data_ptr() != adam.m[k].data_ptr()
+    for k in STATS:
+        assert torch.equal(getattr(m2, k), getattr(model, k))
+    m2.denom.zero_()
+    assert float(model.denom.sum()) == 24.0

@@ -13,6 +13,8 @@ import torch
 
 from gsdf_slam_tpu_torch import convert, kernels
 from gsdf_slam_tpu_torch.config import OptimizationParams
+from gsdf_slam_tpu_torch.engine import Camera, Keyframe
+from gsdf_slam_tpu_torch.io import ply_dict_to_gaussians
 from gsdf_slam_tpu_torch.models import GaussianModel
 from gsdf_slam_tpu_torch.models.optimizer import expon_lr, group_lrs
 from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, tile_blend
@@ -122,6 +124,11 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
 
 _PCD = np.random.default_rng(0).uniform(-1, 1, (20, 3)).astype(np.float32)
 _POSE = (np.array([1.0, 0, 0, 0]), np.zeros(3), 1.0, 1.0)
+_KEYFRAME = Keyframe(fid=0, camera=Camera(0, 50.0, 50.0, 32.0, 32.0, 64, 64), t_cw=np.eye(4, dtype=np.float32),
+                     image=np.zeros((64, 64, 3), np.float32))
+_PLY = {**{c: _PCD[:, i] for i, c in enumerate("xyz")}, **{f"f_dc_{i}": _PCD[:, i] for i in range(3)},
+        "opacity": _PCD[:, 0], **{f"scale_{i}": _PCD[:, i] for i in range(3)},
+        **{f"rot_{i}": _PCD[:, i % 3] for i in range(4)}}
 # each entry point called without a device
 _DEFAULT_DEVICE_CALLS = {
     "create_from_pcd": lambda: GaussianModel.create_from_pcd(_PCD, _PCD).xyz,
@@ -134,6 +141,8 @@ _DEFAULT_DEVICE_CALLS = {
     "from_jax_pairs": lambda: convert.from_jax_pairs(np.zeros((2, 1), np.int32), np.zeros((16, 128), np.float32))[1],
     "expon_lr": lambda: expon_lr(10, 1e-3, 1e-5),
     "group_lrs": lambda: group_lrs(OptimizationParams(), 1.0, 10)["f_dc"],
+    "camera_matrices": lambda: _KEYFRAME.camera_matrices().view,
+    "ply_dict_to_gaussians": lambda: ply_dict_to_gaussians(_PLY).xyz,
 }
 
 

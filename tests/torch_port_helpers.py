@@ -194,3 +194,51 @@ def window_gather_reference(ws, table, ranks, win, cpc, fill):
         if 0 <= r - ws[i // cpc] < win and 0 <= r < table.shape[1]:
             out[:, i] = table[:, r]
     return out
+
+
+def surgery_model(size, seed=0):
+    """A CPU map and Adam state for the surgery checks, with seeded
+    statistics, moments and exist_since_iter so that every branch of
+    densify_and_prune fires at `surgery_extent(model)`: "64x64", the test
+    scene's live Gaussians; "50k", the headline recipe at 50,000 Gaussians
+    (probes/scene.py). Half the rows carry a mean gradient far above
+    0.0002; every 17th is nearly transparent."""
+    from gsdf_slam_tpu_torch.models import AdamState, GaussianModel
+    from gsdf_slam_tpu_torch.probes.scene import headline_scene
+
+    if size == "64x64":
+        s = scene_arrays(seed=5)
+        opac = live(s, "opac")
+        model = GaussianModel({"xyz": live(s, "means"), "f_dc": live(s, "dc"), "f_rest": live(s, "sh_rest"),
+                               "opacity": torch.log(opac / (1 - opac))[:, None],
+                               "scaling": torch.log(live(s, "scales")), "rotation": live(s, "quats")})
+    else:
+        model = headline_scene("cpu", n=50_000, seed=seed)
+    n = model.count
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.xyz_grad_accum.copy_(torch.where(torch.rand(n, generator=g) < 0.5, 5e-3, 1e-5) * 3)
+        model.denom.fill_(3.0)
+        model.max_radii2d.copy_(torch.randint(0, 40, (n,), generator=g).float())
+        model.exist_since_iter.copy_(torch.randint(0, 50, (n,), generator=g, dtype=torch.int32))
+        model.opacity[::17] = -8.0
+    adam = AdamState(m={k: torch.randn(p.shape, generator=g) for k, p in model.params().items()},
+                     v={k: torch.rand(p.shape, generator=g) for k, p in model.params().items()}, step=9)
+    return model, adam
+
+
+def surgery_extent(model):
+    """The scene extent at which 30% of the rows are small enough to clone
+    (max scale <= 0.01 extent)."""
+    return float(torch.quantile(model.scaling_act().detach().amax(1), 0.3)) / 0.01
+
+
+def new_points(model, m=2000, seed=1):
+    """increase_pcd's input: half the model's centres jittered by under a
+    tenth of a voxel (most dedup), half uniform in the map's bounding box;
+    colours in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    xyz = model.xyz.detach().cpu().numpy()
+    near = xyz[rng.integers(0, len(xyz), m // 2)] + rng.uniform(-0.005, 0.005, (m // 2, 3))
+    far = rng.uniform(xyz.min(0), xyz.max(0), (m - m // 2, 3))
+    return np.concatenate([near, far]).astype(np.float32), rng.uniform(0, 1, (m, 3)).astype(np.float32)
