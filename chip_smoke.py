@@ -62,7 +62,22 @@ Phases, each printing its own lines:
    raise; three fresh steps, one export and three cached steps at the new
    count. `[densify]` lines: counts before and after every step and
    surgery, each surgery's host ms and host syncs, the fresh step median
-   before and after the cycle, and the phase's wall time.
+   before and after the cycle, and the phase's wall time;
+9. streaming, the mapper's loop through the port's data plane, with the
+   launch counts taken over each stream: (9a) the colouriser on the card
+   against the same function on a CPU copy, at KITTI's shapes (a 1226x370
+   image of the synthetic drive, a 120,000-point 360-degree scan), and the
+   host ms of colorize_frame; (9b) a KITTI-mode stream, cfg/kitti.yaml's
+   settings (the port's copy): 20 frames along the drive, each colourised,
+   ingested and trained once, then 40 polish iterations, with the count of
+   fresh, export and cached steps, the launches of K3, K1, K2 and K4, the
+   Gaussians at the end, the mapper's host ms per phase and the host syncs
+   of one ingest and one step; (9c) the room stream at 1200x680 through
+   gsdf_slam_tpu_torch.stream (60 frames and the drain), its JSON line,
+   the device's peak memory and the ingest split between the host 3-NN and
+   the rest; (9d) a short stream (6 frames at 64x64, rebin 4) on the card
+   against the CPU: the same keyframes, iterations, counts and binning
+   decisions, losses within 1e-5.
 
 Each kernel is timed replayed from a CUDA graph (the device's time) beside
 its bound (the least time the card could take, from the bytes it must move,
@@ -203,6 +218,15 @@ KF_OFFSET = 1.0
 DENSIFY = dict(max_grad=0.0002, min_opacity=0.005, max_screen_size=20, percent_dense=0.01)
 INGEST_POINTS = 200_000
 STABLE_NUM_ITER = 3
+# phase 9: KITTI's image size, an HDL-64E scan's size, the KITTI-mode drive
+# (frames, then polish iterations; the host syncs are counted at one frame),
+# the room stream of benchmarks/e2e_stream.py, and the short stream run on
+# the card and on the CPU
+KITTI_W, KITTI_H = 1226, 370
+SCAN_POINTS = 120_000
+KITTI_FRAMES, POLISH_ITERS, SYNC_FRAME = 20, 40, 10
+ROOM_FRAMES, ROOM_W, ROOM_H = 60, 1200, 680
+SHORT_FRAMES, SHORT_SIZE, SHORT_REBIN = 6, 64, 4
 
 
 def log(msg: str) -> None:
@@ -1011,6 +1035,155 @@ def drive_densify_cycle(torch, device, smi):
     return launches, failed
 
 
+def drive_streaming(torch, device, smi):
+    """Phase 9: the data plane and the mapper's streaming loop on the card.
+    Returns the failed checks."""
+    from gsdf_slam_tpu_torch import kernels, stream
+    from gsdf_slam_tpu_torch.data import CameraIntrinsics, colorize_frame
+    from gsdf_slam_tpu_torch.engine import GaussianMapper, MapperSettings
+    from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.synthetic_outdoor import (
+        drive_pose, kitti_calibration, lidar_scan, raycast_outdoor,
+    )
+    from gsdf_slam_tpu_torch.probes.synthetic_room import make_sequence
+
+    t_phase = time.perf_counter()
+    failed = []
+    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export")
+    proj, tr = kitti_calibration(KITTI_W, KITTI_H)
+
+    def frame_inputs(i):
+        pose = drive_pose(2.0 * i, sway=0.3 * np.sin(0.4 * i))
+        image, _ = raycast_outdoor(pose, KITTI_W, KITTI_H)
+        return pose, image, lidar_scan(pose, SCAN_POINTS, seed=i), (pose.astype(np.float64) @ tr).astype(np.float32)
+
+    # ---- 9a. the colouriser at KITTI's shapes, card against CPU
+    pose, image, scan, lidar_pose = frame_inputs(3)
+    got = colorize_pointcloud(scan, image, proj, tr, lidar_pose, device=device)
+    want = colorize_pointcloud(scan, image, proj, tr, lidar_pose, device="cpu")
+    res = checks.colorize_check(got, want)
+    log(f"[stream] 9a colorize_pointcloud of {res['n']} points ({KITTI_W}x{KITTI_H} image) on the card against "
+        f"the CPU: valid {res['valid']}, masks equal {res['valid_equal']}, points bit-equal "
+        f"{res['points_bit_equal']} (max err {res['points_err']:.3g}), colours bit-equal {res['colors_bit_equal']} "
+        f"({res['moved_pixels']} points on another pixel, max err {res['colors_err']:.3g})")
+    if not res["ok"]:
+        failed.append("stream:colorize-differs-from-cpu")
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = colorize_frame(image, scan, proj, tr, pose, lidar_pose, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    n_sync, where = count_syncs(torch, lambda: colorize_frame(image, scan, proj, tr, pose, lidar_pose, device))
+    log(f"[stream] 9a colorize_frame: median {float(np.median(ms[1:])):.3f} ms on the host clock (5 calls after "
+        f"one warm-up, call to the compacted points on the host; runs {[round(v, 3) for v in ms]}), {n_sync} host "
+        f"syncs at {where}, {len(fr.points)} points kept; on {smi}")
+
+    # ---- 9b. a KITTI-mode stream: colourise, ingest, train once a frame
+    here = os.path.dirname(os.path.abspath(__file__))
+    settings = MapperSettings.from_yaml(os.path.join(here, "gsdf_slam_tpu_torch", "cfg", "kitti.yaml"))
+    fx = 0.5 * KITTI_W  # raycast_outdoor's pinhole: 90 degrees across
+    intr = CameraIntrinsics(fx=fx, fy=fx, cx=(KITTI_W - 1) / 2.0, cy=(KITTI_H - 1) / 2.0, width=KITTI_W,
+                            height=KITTI_H)
+    mapper = GaussianMapper(settings=settings, device=device)
+    col_ms, data_ms, losses, streamed, syncs = [], 0.0, [], [], {}
+    kernels.reset_launch_counts()
+    t_stream = time.perf_counter()
+    for i in range(KITTI_FRAMES):
+        t0 = time.perf_counter()
+        pose, image, scan, lidar_pose = frame_inputs(i)
+        data_ms += (time.perf_counter() - t0) * 1e3
+        box = {}
+
+        def ingest():
+            t0 = time.perf_counter()
+            box["fr"] = colorize_frame(image, scan, proj, tr, pose, lidar_pose, device)
+            col_ms.append((time.perf_counter() - t0) * 1e3)
+            mapper.ingest_frame(i, box["fr"], intrinsics=intr)
+
+        if i == SYNC_FRAME:
+            syncs["ingest"] = count_syncs(torch, ingest)
+            syncs["step"] = count_syncs(torch, lambda: box.setdefault("out", mapper.train_for_one_iteration()))
+            out = box["out"]
+        else:
+            ingest()
+            out = mapper.train_for_one_iteration()
+        losses.append(out["loss"])
+        streamed.append(mapper.last_binning)
+    polish = []
+    for _ in range(POLISH_ITERS):
+        losses.append(mapper.train_for_one_iteration()["loss"])
+        polish.append(mapper.last_binning)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_stream
+    launches = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    count = lambda seq: {k: seq.count(k) for k in ("fresh", "export", "cached")}
+    log(f"[stream] 9b KITTI mode ({KITTI_W}x{KITTI_H}, cfg/kitti.yaml: densify_until_iter "
+        f"{settings.opt.densify_until_iter}, rebin_interval_after_densify {settings.rebin_interval_after_densify}): "
+        f"{KITTI_FRAMES} frames, then {POLISH_ITERS} polish iterations; steps while streaming {count(streamed)} "
+        f"({streamed}), polish {count(polish)}; export from iteration 3 on in every streamed step: "
+        f"{all(b == 'export' for b in streamed[2:])}")
+    log(f"[stream] 9b launches over the stream: {launches}; Gaussians at the end {mapper.model.count}; losses "
+        f"first {losses[0]:.6f}, after the frames {losses[KITTI_FRAMES - 1]:.6f}, last {losses[-1]:.6f}")
+    log(f"[stream] 9b host ms per phase: {json.dumps(mapper.timer.summary())}; colorize_frame total "
+        f"{sum(col_ms):.1f} ms (mean {float(np.mean(col_ms)):.3f}); the frames' raycasts and scans (numpy) "
+        f"{data_ms:.1f} ms; wall {wall:.2f} s; on {smi}")
+    log(f"[stream] 9b host syncs at frame {SYNC_FRAME}: colorize_frame + ingest_frame {syncs['ingest'][0]} at "
+        f"{syncs['ingest'][1]}; train_for_one_iteration ({streamed[SYNC_FRAME]} step) {syncs['step'][0]} at "
+        f"{syncs['step'][1]}")
+    steps = count(streamed + polish)
+    if not all(math.isfinite(v) for v in losses):
+        failed.append("stream:kitti-loss-not-finite")
+    if (launches["tile_ranges_pack"] != steps["fresh"] + steps["export"]
+            or launches["blend_fwd_export"] != steps["export"]
+            or launches["blend_fwd"] != steps["fresh"] + steps["cached"]
+            or launches["blend_bwd"] != len(streamed + polish)):
+        failed.append("stream:kitti-launches-disagree-with-the-binning")
+    failed += [f"stream:kitti-{k}-not-launched" for k in path_kernels if launches[k] == 0]
+    del mapper
+
+    # ---- 9c. the room stream at 1200x680 (benchmarks/e2e_stream.py's)
+    t0 = time.perf_counter()
+    frames = make_sequence(ROOM_FRAMES, ROOM_W, ROOM_H)
+    log(f"[stream] 9c {ROOM_FRAMES} room frames at {ROOM_W}x{ROOM_H} raycast (numpy) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kernels.reset_launch_counts()
+    result, room_steps = stream.run_stream(ROOM_FRAMES, ROOM_W, ROOM_H, device, frames=frames)
+    launches = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    del frames
+    log(f"[stream] 9c gsdf_slam_tpu_torch.stream: {json.dumps(result)}")
+    ph = result["phases_ms"]
+    knn = ph.get("ingest.knn", {}).get("total_ms", 0.0)
+    inc = ph.get("ingest.increase_pcd", {}).get("total_ms", 0.0)
+    bp = ph.get("ingest.backproject", {}).get("total_ms", 0.0)
+    log(f"[stream] 9c launches over the stream: {launches}; peak device memory {result['peak_device_mb']:.1f} MiB "
+        f"(the stream's own, beyond what was allocated when it began); "
+        f"ingest split: host 3-NN {knn:.1f} ms of increase_pcd's {inc:.1f} ms ({knn / max(inc, 1e-9):.3f}), the "
+        f"rest {inc - knn:.1f} ms, backprojection {bp:.1f} ms, over {ROOM_FRAMES} ingests; on {smi}")
+    if not all(math.isfinite(r["loss"]) for r in room_steps):
+        failed.append("stream:room-loss-not-finite")
+    failed += [f"stream:room-{k}-not-launched" for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd")
+               if launches[k] == 0]
+
+    # ---- 9d. the short stream on the card against the CPU
+    frames = make_sequence(SHORT_FRAMES, SHORT_SIZE, SHORT_SIZE)
+    _, want = stream.run_stream(SHORT_FRAMES, SHORT_SIZE, SHORT_SIZE, "cpu", SHORT_REBIN, frames=frames)
+    kernels.reset_launch_counts()
+    _, got = stream.run_stream(SHORT_FRAMES, SHORT_SIZE, SHORT_SIZE, device, SHORT_REBIN, frames=frames)
+    launches = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    res = checks.stream_check(got, want)
+    log(f"[stream] 9d {SHORT_FRAMES} frames at {SHORT_SIZE}x{SHORT_SIZE}, rebin {SHORT_REBIN}, card against CPU: "
+        f"{res['steps']} steps, keyframes, iterations, counts and binning equal {res['sequence_equal']}, loss err "
+        f"{res['loss_err']:.3g} (bar {checks.STREAM_LOSS_ATOL:g}); binning {[r['binning'] for r in got]}; launches "
+        f"{launches}")
+    if not res["ok"]:
+        failed.append("stream:short-stream-card-differs-from-cpu")
+    failed += [f"stream:short-{k}-not-launched" for k in path_kernels if launches[k] == 0]
+    log(f"[stream] phase 9 wall time {time.perf_counter() - t_phase:.1f} s")
+    return failed
+
+
 def main() -> int:
     import torch
 
@@ -1367,6 +1540,9 @@ def main() -> int:
     # ---- 8. the densify cycle at the headline
     _, f = drive_densify_cycle(torch, device, smi)
     failed += f
+
+    # ---- 9. streaming: the data plane and the mapper's loop
+    failed += drive_streaming(torch, device, smi)
 
     torch.cuda.synchronize()
     if failed:

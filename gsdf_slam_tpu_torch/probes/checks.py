@@ -1,9 +1,10 @@
 """The probe kernels, and the bucket checkpoints of K1 and K4, against
 their plain versions: the bars and the comparisons (and the count of
 checkpoint words K1 writes, and the keep bytes K4 writes); the depth
-render through K1 against the plain blend; the model surgery on the card
-against the same surgery on the CPU. Shared by chip_smoke.py and
-tests/test_torch_cuda.py so that each bar is defined once.
+render through K1 against the plain blend; the model surgery, the
+colouriser and a short stream on the card against the same on the CPU.
+Shared by chip_smoke.py and tests/test_torch_cuda.py so that each bar is
+defined once.
 
 Bars, with their reasons:
 
@@ -39,6 +40,18 @@ CPU's may differ in the last bit: those within SURGERY_RTOL of the
 largest magnitude among them (the 1e-6 of the CPU parity tests against
 the JAX package).
 
+The colouriser on the card against the same function on a CPU copy: the
+validity masks equal; the points and colours bit-equal (the same
+elementwise float32 ops, no contraction), or else the count of points
+whose colour differs (each landed on another pixel) and the largest
+errors are reported.
+
+A short stream on the card against the same stream on the CPU (the same
+frames and seed): the keyframe of every step, the iteration, the count
+after every step and the binning of every step (fresh, export, cached)
+equal; losses within STREAM_LOSS_ATOL, the bar of the card's training
+steps against the CPU's in chip_smoke.py.
+
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
 chunks). That moves log T_eff by at least log1p(-1/255) and, for `notrans`,
@@ -62,6 +75,7 @@ FLIP_LOG_T = 1e-3
 MAX_FLIPS = 80
 FIELDS = {"means2d": slice(0, 2), "conics": slice(2, 5), "opacity": slice(5, 6), "colors": slice(6, 9)}
 SURGERY_RTOL = 1e-6
+STREAM_LOSS_ATOL = 1e-5
 
 
 def bit_equal(got, want) -> bool:
@@ -283,4 +297,33 @@ def surgery_check(got_model, got_adam, want_model, want_adam, computed, fields=(
     if got_adam.step != want_adam.step:
         out["not_equal"].append("step")
     out["ok"] = not out["not_equal"] and all(e <= SURGERY_RTOL for e in out["errs"].values())
+    return out
+
+
+def colorize_check(got, want) -> dict:
+    """`ops/colorize.py::colorize_pointcloud` outputs (ColorizedCloud) on
+    the card against the CPU's."""
+    got = type(got)(*(x.cpu() for x in got))
+    valid = want.valid
+    moved = (got.colors[valid] != want.colors[valid]).any(dim=1)
+    out = {
+        "n": int(valid.numel()),
+        "valid": int(valid.sum()),
+        "valid_equal": bool(torch.equal(got.valid, valid)),
+        "points_bit_equal": bool(torch.equal(got.points_world, want.points_world)),
+        "points_err": float((got.points_world - want.points_world).abs().max()),
+        "colors_bit_equal": bool(torch.equal(got.colors[valid], want.colors[valid])),
+        "moved_pixels": int(moved.sum()),
+        "colors_err": float((got.colors[valid] - want.colors[valid]).abs().max()) if valid.any() else 0.0,
+    }
+    out["ok"] = out["valid_equal"] and bool(torch.isfinite(got.points_world).all())
+    return out
+
+
+def stream_check(got_steps: list[dict], want_steps: list[dict]) -> dict:
+    """`stream.run_stream`'s step records on the card against the CPU's."""
+    key = lambda s: [(r["iteration"], r["fid"], r["count"], r["binning"]) for r in s]
+    loss_err = max((abs(a["loss"] - b["loss"]) for a, b in zip(got_steps, want_steps)), default=0.0)
+    out = {"steps": len(got_steps), "sequence_equal": key(got_steps) == key(want_steps), "loss_err": loss_err}
+    out["ok"] = out["sequence_equal"] and loss_err <= STREAM_LOSS_ATOL and len(got_steps) > 0
     return out

@@ -22,8 +22,13 @@ from gsdf_slam_tpu_torch.models import gaussian_model as surgery
 from gsdf_slam_tpu_torch.ops import (
     CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, render, tile_blend,
 )
+from gsdf_slam_tpu_torch.data import colorize_frame
+from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 from gsdf_slam_tpu_torch.probes import checks, expand_probe, microbench
 from gsdf_slam_tpu_torch.probes.scene import HEIGHT, WALL_SIZE, WIDTH, headline_camera, wall_scene
+from gsdf_slam_tpu_torch.probes.synthetic_outdoor import drive_pose, kitti_calibration, lidar_scan, raycast_outdoor
+from gsdf_slam_tpu_torch.probes.synthetic_room import make_sequence
+from gsdf_slam_tpu_torch.stream import run_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -515,3 +520,43 @@ def test_render_depth_state_through_k1_matches_plain(dev, scene):
     assert res["covered"] > 0, res
     assert res["accum"] <= checks.FWD_SMALL and res["coverage"] <= checks.FWD_SMALL, res
     assert res["depth"] <= 4 * checks.FWD_SMALL, res
+
+
+def test_colorize_on_the_card_matches_the_cpu(dev):
+    """A 120,000-point scan over 360 degrees colourised from a 1226x370
+    image on the card and on the CPU: the masks, points and colours
+    bit-equal; colorize_frame, given no device, runs on the card and
+    compacts to the valid points."""
+    pose = drive_pose(4.0, sway=0.3)
+    proj, tr = kitti_calibration(1226, 370)
+    image, _ = raycast_outdoor(pose, 1226, 370)
+    scan = lidar_scan(pose, seed=1)
+    lidar_pose = (pose.astype(np.float64) @ tr).astype(np.float32)
+    got = colorize_pointcloud(scan, image, proj, tr, lidar_pose, device=dev)
+    want = colorize_pointcloud(scan, image, proj, tr, lidar_pose, device="cpu")
+    assert got.valid.device.type == "cuda"
+    res = checks.colorize_check(got, want)
+    assert res["ok"] and res["points_bit_equal"] and res["colors_bit_equal"], res
+    assert 10_000 < res["valid"] < 60_000, res
+    fr = colorize_frame(image, scan, proj, tr, pose, lidar_pose)
+    np.testing.assert_array_equal(fr.points, want.points_world[want.valid].numpy())
+    np.testing.assert_array_equal(fr.colors, want.colors[want.valid].numpy())
+
+
+def test_short_stream_on_the_card_matches_the_cpu(dev):
+    """chip_smoke.py's 9d: six frames of the room at 64x64 with rebin 4
+    through the mapper on the card and on the CPU, one seed: the same
+    keyframes, iterations, counts and binning decisions, losses within
+    STREAM_LOSS_ATOL; the card's steps go through K3, K4, K1 and K2."""
+    frames = make_sequence(6, 64, 64)
+    _, want = run_stream(6, 64, 64, device="cpu", rebin_interval=4, frames=frames)
+    kernels.reset_launch_counts()
+    result, got = run_stream(6, 64, 64, device=dev, rebin_interval=4, frames=frames)
+    res = checks.stream_check(got, want)
+    assert res["ok"], res
+    n = result["binning"]
+    assert n.get("export", 0) > 0 and n.get("cached", 0) > 0, n
+    assert kernels.LAUNCHES["blend_fwd_export"] == n["export"]
+    assert kernels.LAUNCHES["tile_ranges_pack"] == n["export"] + n.get("fresh", 0)
+    assert kernels.LAUNCHES["blend_fwd"] == n["cached"] + n.get("fresh", 0)
+    assert kernels.LAUNCHES["blend_bwd"] == len(got)

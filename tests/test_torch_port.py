@@ -13,11 +13,13 @@ import torch
 
 from gsdf_slam_tpu_torch import convert, kernels
 from gsdf_slam_tpu_torch.config import OptimizationParams
-from gsdf_slam_tpu_torch.engine import Camera, Keyframe
+from gsdf_slam_tpu_torch.data import DataLoader
+from gsdf_slam_tpu_torch.engine import Camera, GaussianMapper, Keyframe
 from gsdf_slam_tpu_torch.io import ply_dict_to_gaussians
 from gsdf_slam_tpu_torch.models import GaussianModel
 from gsdf_slam_tpu_torch.models.optimizer import expon_lr, group_lrs
 from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, tile_blend
+from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -49,7 +51,30 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", _NO_JAX], capture_output=True, text=True, cwd=REPO, env=env, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 55
+
+
+_NO_CV2_AT_IMPORT = r"""
+import importlib, pkgutil, sys
+import gsdf_slam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gsdf_slam_tpu_torch.__path__, "gsdf_slam_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+print(sorted(m for m in ("cv2", "yaml") if m in sys.modules))
+"""
+
+
+def test_port_imports_no_cv2_at_import_time():
+    """The card's machine has no cv2: every module of the port imports
+    without it; cv2 (and yaml) are imported inside the functions that use
+    them."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_CV2_AT_IMPORT], capture_output=True, text=True, cwd=REPO, env=env, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+    assert "cv2" not in res.stdout.strip(), res.stdout
 
 
 class _ClaimsCuda(torch.Tensor):
@@ -129,6 +154,32 @@ _KEYFRAME = Keyframe(fid=0, camera=Camera(0, 50.0, 50.0, 32.0, 32.0, 64, 64), t_
 _PLY = {**{c: _PCD[:, i] for i, c in enumerate("xyz")}, **{f"f_dc_{i}": _PCD[:, i] for i in range(3)},
         "opacity": _PCD[:, 0], **{f"scale_{i}": _PCD[:, i] for i in range(3)},
         **{f"rot_{i}": _PCD[:, i % 3] for i in range(4)}}
+_SCAN = (np.random.default_rng(1).uniform(-5, 5, (50, 3)).astype(np.float32), np.zeros((8, 8, 3), np.float32),
+         np.eye(4, dtype=np.float32)[:3], np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32))
+
+
+def _loader_get_item():
+    """A one-frame KITTI directory, read by a DataLoader given no device:
+    get_item colourises its scan on the loader's device."""
+    import tempfile
+
+    cv2 = pytest.importorskip("cv2")
+    with tempfile.TemporaryDirectory() as tmp:
+        return _read_one_kitti_frame(cv2, Path(tmp))
+
+
+def _read_one_kitti_frame(cv2, base):
+    (base / "image_2").mkdir()
+    (base / "velodyne").mkdir()
+    (base / "calib.txt").write_text("P2: 50 0 32 0 0 50 16 0 0 0 1 0\nTr: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+    (base / "poses.txt").write_text("1 0 0 0 0 1 0 0 0 0 1 0\n")
+    cv2.imwrite(str(base / "image_2" / "000000.png"), np.zeros((32, 64, 3), np.uint8))
+    np.array([[0.0, 0.0, 5.0, 0.0]], np.float32).tofile(base / "velodyne" / "000000.bin")
+    loader = DataLoader(base, "kitti")
+    loader.get_item(0)
+    return torch.empty(0, device=loader.device)
+
+
 # each entry point called without a device
 _DEFAULT_DEVICE_CALLS = {
     "create_from_pcd": lambda: GaussianModel.create_from_pcd(_PCD, _PCD).xyz,
@@ -143,6 +194,9 @@ _DEFAULT_DEVICE_CALLS = {
     "group_lrs": lambda: group_lrs(OptimizationParams(), 1.0, 10)["f_dc"],
     "camera_matrices": lambda: _KEYFRAME.camera_matrices().view,
     "ply_dict_to_gaussians": lambda: ply_dict_to_gaussians(_PLY).xyz,
+    "GaussianMapper": lambda: GaussianMapper()._bg[False],
+    "colorize_pointcloud": lambda: colorize_pointcloud(*_SCAN).points_world,
+    "DataLoader.get_item": _loader_get_item,
 }
 
 
