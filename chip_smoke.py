@@ -77,7 +77,29 @@ Phases, each printing its own lines:
    the device's peak memory and the ingest split between the host 3-NN and
    the rest; (9d) a short stream (6 frames at 64x64, rebin 4) on the card
    against the CPU: the same keyframes, iterations, counts and binning
-   decisions, losses within 1e-5.
+   decisions, losses within 1e-5;
+10. the monocular SLAM mode, cfg/tum_mono.yaml's settings (the port's
+   copy; the pyramid off, the card's machine has no cv2), with the launch
+   counts taken over each run: (10a) 60 room keyframes at 1200x680 fed
+   image only with 1,000 seeded tracker points each (probes/mono.py), one
+   step each, a small correction (0.5 deg, 1 cm) of an earlier keyframe
+   after every 10th keyframe's step and a large one (35 deg) of keyframe
+   40, then 60 polish iterations: frames/s, iterations/s, the samples by
+   source, host ms per phase, host syncs of a keyframe that fills the depth
+   cache, of one that flushes it and of a step, the launches of K3, K1 and
+   K2 against the steps and depth renders, the counts around the large
+   correction, the Gaussians at the end and the peak device memory; (10b)
+   its checkpoint saved, loaded on the card and on the CPU (bit-equal),
+   renders of three keyframes bit-equal, one train_step from each within
+   1e-5 loss and 6 lr units; (10c) the room stream (60 frames, 1200x680)
+   at pipeline depths 0, 2, 2, 0, and the host syncs a step at each depth;
+   (10d) probes/mono.py's short mono stream (8 keyframes at 64x64) at
+   pipeline depth 2 on the card against the CPU (checks.mono_run_check:
+   tracker and prior samples bit-equal, the depth render's within K1's
+   bar, the samples that differ at the selection's frontier counted), and
+   against the card at depth 0; then 11 keyframes fed an image only, at
+   the default settings and at the yaml's depth cache of 10 (nine steps
+   on an empty map), card against CPU.
 
 Each kernel is timed replayed from a CUDA graph (the device's time) beside
 its bound (the least time the card could take, from the bytes it must move,
@@ -227,6 +249,21 @@ SCAN_POINTS = 120_000
 KITTI_FRAMES, POLISH_ITERS, SYNC_FRAME = 20, 40, 10
 ROOM_FRAMES, ROOM_W, ROOM_H = 60, 1200, 680
 SHORT_FRAMES, SHORT_SIZE, SHORT_REBIN = 6, 64, 4
+# phase 10: the mono stream's keyframes (the room at ROOM_W x ROOM_H), its
+# polish iterations and tracker points a keyframe; a small correction after
+# every SMALL_EVERY-th keyframe's step, of the keyframe SMALL_BACK before
+# it; the large one of keyframe LARGE_AT; the keyframes whose host syncs are
+# counted (one that fills the depth cache, one that flushes it); the
+# keyframes rendered after the checkpoint's load; the pipeline depths of the
+# room stream, in turns, and the frames of the stream whose syncs are
+# counted; the image-only keyframes of 10d
+MONO_FRAMES, MONO_POLISH, TRACKER_POINTS = 60, 60, 1000
+SMALL_EVERY, SMALL_BACK, LARGE_AT = 10, 5, 40
+MONO_SYNC_FRAMES = (25, 29)
+CKPT_RENDER_FIDS = (0, 30, 59)
+PIPE_DEPTHS = (0, 2, 2, 0)
+SYNC_STREAM_FRAMES = 8
+IMAGE_ONLY_FRAMES = 11
 
 
 def log(msg: str) -> None:
@@ -461,6 +498,16 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
     return errs, failed, counts
 
 
+def lr_units_err(got: dict, want: dict, opt, spatial_lr_scale: float = 1.0) -> float:
+    """The largest parameter difference in units of its group's learning
+    rate. After step 1 Adam moves each element by about lr * sign(g): a
+    gradient that is float noise around 0 may flip sign, so training on the
+    card is held to the CPU's in these units."""
+    lr = {"xyz": opt.position_lr_init * spatial_lr_scale, "f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20,
+          "opacity": opt.opacity_lr, "scaling": opt.scaling_lr, "rotation": opt.rotation_lr}
+    return max(float((got[k].cpu() - want[k].cpu()).abs().max()) / lr[k] for k in lr)
+
+
 def check_small_training(torch, device, cadence=False):
     """Training steps on the card against the same steps on the CPU (plain
     versions), from the same small scene: three fresh steps, or with
@@ -496,12 +543,7 @@ def check_small_training(torch, device, cadence=False):
         results[str(dev)] = (losses, {k: p.detach().cpu() for k, p in model.params().items()})
     (l_cpu, p_cpu), (l_gpu, p_gpu) = results["cpu"], results[str(device)]
     loss_err = max(abs(a - b) for a, b in zip(l_cpu, l_gpu))
-    # after step 1 Adam moves each element by about lr * sign(g): a gradient
-    # that is float noise around 0 may flip sign, so parameters are held in
-    # units of the group's learning rate
-    lr = {"xyz": opt.position_lr_init, "f_dc": opt.feature_lr, "f_rest": opt.feature_lr / 20,
-          "opacity": opt.opacity_lr, "scaling": opt.scaling_lr, "rotation": opt.rotation_lr}
-    p_err = max(float((p_cpu[k] - p_gpu[k]).abs().max()) / lr[k] for k in p_cpu)
+    p_err = lr_units_err(p_cpu, p_gpu, opt)
     what = f"cadence (1 export + {CACHED_STEPS} cached steps)" if cadence else "3 fresh steps"
     log(f"[check train] {what}: losses cpu={l_cpu} gpu={l_gpu} max_loss_err={loss_err:.3g} "
         f"max_param_err={p_err:.3g} lr units")
@@ -1184,6 +1226,206 @@ def drive_streaming(torch, device, smi):
     return failed
 
 
+def drive_mono(torch, device, smi):
+    """Phase 10: the monocular SLAM mode (cfg/tum_mono.yaml, the port's
+    copy) on the card. Returns the failed checks."""
+    from gsdf_slam_tpu_torch import kernels, stream
+    from gsdf_slam_tpu_torch.engine import GaussianMapper, MapperSettings, train_step
+    from gsdf_slam_tpu_torch.ops import RasterizeConfig
+    from gsdf_slam_tpu_torch.probes import checks, mono
+    from gsdf_slam_tpu_torch.probes.synthetic_room import make_sequence
+
+    t_phase = time.perf_counter()
+    failed = []
+    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export")
+    settings = mono.mono_settings()
+    intr = mono.room_intrinsics(ROOM_W, ROOM_H)
+
+    # ---- 10a. the mono stream at 1200x680: image-only keyframes with
+    # tracker points, pose corrections, then polish iterations
+    t0 = time.perf_counter()
+    frames = make_sequence(MONO_FRAMES, ROOM_W, ROOM_H)
+    tracker = [mono.tracker_points(p, rgb, d, TRACKER_POINTS, seed=i) for i, (p, rgb, d) in enumerate(frames)]
+    log(f"[mono] 10a {MONO_FRAMES} room frames at {ROOM_W}x{ROOM_H} and {TRACKER_POINTS} tracker points each "
+        f"(numpy) in {time.perf_counter() - t0:.2f} s")
+    kernels.library()
+    mapper = GaussianMapper(settings=settings, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    losses, syncs, small, large, box = [], {}, [], {}, {}
+    t_stream = time.perf_counter()
+    for i, (pose, rgb, _) in enumerate(frames):
+        pts, cols = tracker[i]
+        feed = lambda: mapper.feed_keyframe(i, pose, rgb, points=pts, colors=cols, intrinsics=intr)
+        if i in MONO_SYNC_FRAMES:
+            syncs[f"feed_keyframe {i}"] = count_syncs(torch, feed)
+        else:
+            feed()
+        if i == LARGE_AT:  # before the step: this keyframe's points are the young ones
+            n0 = mapper.model.count
+            mapper.update_keyframe_pose(i, mono.corrected_pose(pose, *mono.LARGE_CORRECTION))
+            exist = mapper.model.exist_since_iter
+            large = {"before": n0, "after": mapper.model.count, "iteration": mapper.iteration,
+                     "stable": bool((exist <= mapper.iteration - settings.stable_num_iter_existence).all())}
+        if i == MONO_SYNC_FRAMES[0]:
+            syncs["train_for_one_iteration"] = count_syncs(
+                torch, lambda: box.update(out=mapper.train_for_one_iteration()))
+            out = box["out"]
+        else:
+            out = mapper.train_for_one_iteration()
+        losses.append(out["loss"])
+        if i and i % SMALL_EVERY == 0:  # after the step: the caches it left
+            fid, n0, caches = i - SMALL_BACK, mapper.model.count, sorted(mapper._bin_cache)
+            t_wc = np.linalg.inv(mapper.scene.keyframes[fid].t_cw.astype(np.float64))
+            mapper.update_keyframe_pose(fid, mono.corrected_pose(t_wc, *mono.SMALL_CORRECTION))
+            small.append({"at": i, "fid": fid, "pruned": n0 - mapper.model.count, "caches": len(caches),
+                          "caches_ok": sorted(mapper._bin_cache) == [k for k in caches if k[0] != fid]})
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t_stream
+    for _ in range(MONO_POLISH):
+        losses.append(mapper.train_for_one_iteration()["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_stream
+    launches = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    renders = mapper.timer.counts["mono.depth_render"]
+    steps = len(losses)
+    peak_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
+    log(f"[mono] 10a mono SLAM stream ({ROOM_W}x{ROOM_H}, cfg/tum_mono.yaml: depth cache "
+        f"{settings.max_depth_cached}, pixel distance {settings.inactive_geo_densify_max_pixel_dist:g}, prior "
+        f"{settings.monocular_init_depth:g} m, {settings.new_keyframe_times_of_use} uses, stable_num_iter_existence "
+        f"{settings.stable_num_iter_existence}, thresholds {settings.large_rotation_threshold:g} deg / "
+        f"{settings.large_translation_threshold:g} m; pyramid off): {MONO_FRAMES} keyframes in {stream_s:.2f} s "
+        f"({MONO_FRAMES / stream_s:.3f} frames/s), then {MONO_POLISH} polish iterations; {steps} iterations in "
+        f"{wall:.2f} s ({steps / wall:.3f} iterations/s over the whole run); on {smi}")
+    log(f"[mono] 10a samples by source over the stream: {dict(mapper.mono_sources)}; depth renders {renders}; "
+        f"binning {dict(mapper.binning_counts)}; Gaussians at the end {mapper.model.count}; peak device memory "
+        f"{peak_mb:.1f} MiB (the stream's own); losses first {losses[0]:.6f}, after the keyframes "
+        f"{losses[MONO_FRAMES - 1]:.6f}, last {losses[-1]:.6f}")
+    log(f"[mono] 10a host ms per phase: {json.dumps(mapper.timer.summary())}")
+    for k, (n, where) in syncs.items():
+        log(f"[mono] 10a host syncs of {k}: {n} at {where}")
+    log(f"[mono] 10a launches over the stream: {launches} ({steps} steps, {renders} depth renders)")
+    log(f"[mono] 10a small corrections ({mono.SMALL_CORRECTION[0]:g} deg, {mono.SMALL_CORRECTION[1]:g} m): {small}")
+    log(f"[mono] 10a large correction ({mono.LARGE_CORRECTION[0]:g} deg) of keyframe {LARGE_AT} at iteration "
+        f"{large['iteration']}: Gaussians {large['before']} -> {large['after']} ({large['before'] - large['after']} "
+        f"pruned); every survivor has exist_since_iter <= iteration - {settings.stable_num_iter_existence}: "
+        f"{large['stable']}")
+    if not all(math.isfinite(v) for v in losses):
+        failed.append("mono:loss-not-finite")
+    if any(s["pruned"] or not s["caches_ok"] for s in small):
+        failed.append("mono:small-correction-pruned-or-dropped-other-caches")
+    if not large["stable"] or large["after"] >= large["before"]:
+        failed.append("mono:large-correction-left-young-gaussians")
+    n_bin = mapper.binning_counts
+    if (launches["blend_bwd"] != steps or launches["tile_ranges_pack"] != n_bin["fresh"] + renders
+            or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0):
+        failed.append("mono:launches-disagree-with-the-steps-and-renders")
+    failed += [f"mono:{k}-not-launched" for k in path_kernels[:3] if launches[k] == 0]
+
+    # ---- 10b. the checkpoint: save, load on the card and on the CPU
+    ck = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", "mono.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper.save_checkpoint(ck)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    loaded = GaussianMapper(settings=settings, device=device)
+    t0 = time.perf_counter()
+    loaded.load_checkpoint(ck)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    on_cpu = GaussianMapper(settings=settings, device="cpu")
+    on_cpu.load_checkpoint(ck)
+    cpu_equal = all(torch.equal(getattr(on_cpu.model, k), getattr(loaded.model, k).detach().cpu())
+                    for k in ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation"))
+    del on_cpu
+    render_equal = []
+    for fid in CKPT_RENDER_FIDS:
+        kf = mapper.scene.keyframes[fid]
+        a, b = (m.render_from_pose(kf.t_cw, ROOM_W, ROOM_H, kf.camera.fovx, kf.camera.fovy) for m in (mapper, loaded))
+        render_equal.append(bool(np.array_equal(a, b)))
+    kf = mapper.scene.keyframes[MONO_FRAMES - 1]
+    gt = mapper._images[("gt", kf.fid, settings.num_gaus_pyramid_sub_levels)]
+    bg = torch.zeros(3, device=device)
+    cfg = RasterizeConfig(height=ROOM_H, width=ROOM_W, sh_degree=settings.model.sh_degree)
+    res = {}
+    for name, m in (("saved", mapper), ("loaded", loaded)):
+        met = train_step(m.model, m.adam, kf.camera_matrices(settings.z_near, settings.z_far, device=device), gt,
+                         None, bg, m.iteration + 1, m.spatial_lr_scale, cfg, settings.opt)
+        res[name] = (float(met.loss), {k: p.detach() for k, p in m.model.params().items()})
+    loss_err = abs(res["saved"][0] - res["loaded"][0])
+    p_err = lr_units_err(res["saved"][1], res["loaded"][1], settings.opt, mapper.spatial_lr_scale)
+    log(f"[mono] 10b checkpoint of {mapper.model.count} Gaussians: {os.path.getsize(ck)} bytes, save "
+        f"{save_ms:.1f} ms, load on the card {load_ms:.1f} ms; the CPU port's load bit-equal to the card's: "
+        f"{cpu_equal}; render_from_pose of keyframes {list(CKPT_RENDER_FIDS)} bit-equal: {render_equal}; one "
+        f"train_step on keyframe {kf.fid} from each: loss err {loss_err:.3g} (bar 1e-5), max param err "
+        f"{p_err:.3g} lr units (bar 6)")
+    if not (cpu_equal and all(render_equal) and loss_err <= 1e-5 and p_err <= 6.0):
+        failed.append("mono:checkpoint-does-not-resume")
+    del mapper, loaded, gt, tracker
+
+    # ---- 10c. the room stream at pipeline depths 0 and 2, in turns
+    for depth in PIPE_DEPTHS:
+        kernels.reset_launch_counts()
+        result, room_steps = stream.run_stream(MONO_FRAMES, ROOM_W, ROOM_H, device, frames=frames, pipeline=depth)
+        log(f"[mono] 10c room stream at pipeline depth {depth}: {result['frames_per_sec']:.3f} frames/s, "
+            f"{result['iters_per_sec']:.3f} iterations/s ({result['iterations']} iterations in "
+            f"{result['wall_s']:.2f} s), Gaussians {result['gaussians']}, train_step host ms "
+            f"{result['phases_ms']['train_step']['total_ms']:.1f}; launches "
+            f"{ {k: kernels.LAUNCHES[k] for k in path_kernels[:3]} }; on {smi}")
+        if not all(math.isfinite(r["loss"]) for r in room_steps) or len(room_steps) != result["iterations"]:
+            failed.append(f"mono:room-stream-depth-{depth}-failed")
+    for depth in sorted(set(PIPE_DEPTHS)):
+        n, where = count_syncs(torch, lambda: box.update(r=stream.run_stream(
+            SYNC_STREAM_FRAMES, ROOM_W, ROOM_H, device, frames=frames[:SYNC_STREAM_FRAMES], pipeline=depth)))
+        its = box["r"][0]["iterations"]
+        log(f"[mono] 10c host syncs over a {SYNC_STREAM_FRAMES}-frame room stream at pipeline depth {depth}: {n} in "
+            f"{its} iterations ({n / its:.2f} a step, ingests included) at {where}")
+    del frames
+
+    # ---- 10d. the short mono stream on the card against the CPU
+    c = mono.SHORT
+    short = make_sequence(c["frames"], c["size"], c["size"])
+    want = mono.short_mono_run("cpu", 2, frames=short)
+    kernels.reset_launch_counts()
+    got = mono.short_mono_run(device, 2, frames=short)
+    launches = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    sync0 = mono.short_mono_run(device, 0, frames=short)
+    res = checks.mono_run_check(got, want)
+    depths = checks.stream_check(got["log"], sync0["log"])
+    log(f"[mono] 10d {c['frames']} keyframes at {c['size']}x{c['size']} ({c['points']} tracker points each within "
+        f"{c['pixel_dist']:g} px, depth cache {c['depth_cache']}, rebin {c['rebin']}, a small and a large "
+        f"correction), pipeline depth 2, card against CPU: samples {res['sources']}, tracker and prior samples "
+        f"bit-equal and the render's within K1's bar: {res['samples_ok']} (max depth err {res['depth_err']:.3g}); "
+        f"{res['frontier']} samples kept on one side only, at the frontier (coverage within "
+        f"{checks.FWD_SMALL:g} of 0.5 or depth within the bar of 0.2); counts equal {res['counts_equal']} over "
+        f"{res['compared_keyframes']} keyframes; steps {res['steps']}; large correction {got['large']}, small "
+        f"correction caches {got['caches_before']} -> {got['caches_after']}")
+    log(f"[mono] 10d card at depth 0 against depth 2: {depths}; launches over the depth-2 run {launches}")
+    if not res["ok"]:
+        failed.append("mono:short-stream-card-differs-from-cpu")
+    if not depths["ok"]:
+        failed.append("mono:short-stream-depth-0-differs-from-depth-2")
+    if got["caches_after"] != [k for k in got["caches_before"] if k[0] != got["small_fid"]] or got["small_pruned"]:
+        failed.append("mono:short-small-correction")
+    failed += [f"mono:short-{k}-not-launched" for k in path_kernels if launches[k] == 0]
+    # image only, no tracker points: the default settings, and the yaml's
+    # depth cache of 10, whose first nine steps train an empty map
+    image_frames = make_sequence(IMAGE_ONLY_FRAMES, c["size"], c["size"])
+    for name, s in (("default settings", MapperSettings()), ("cfg/tum_mono.yaml", settings)):
+        want = mono.image_only_run("cpu", s, image_frames)
+        got = mono.image_only_run(device, s, image_frames)
+        res = checks.stream_check(got["log"], want["log"])
+        log(f"[mono] 10d image only, {name} (depth cache {s.max_depth_cached}), {IMAGE_ONLY_FRAMES} keyframes at "
+            f"{c['size']}x{c['size']}, card against CPU: counts after each feed {got['counts']} (equal "
+            f"{got['counts'] == want['counts']}); steps {res}; samples {dict(got['mapper'].mono_sources)}")
+        if not res["ok"] or got["counts"] != want["counts"] or got["counts"][-1] == 0:
+            failed.append(f"mono:image-only-{s.max_depth_cached}-card-differs-from-cpu")
+    log(f"[mono] phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    return failed
+
+
 def main() -> int:
     import torch
 
@@ -1543,6 +1785,9 @@ def main() -> int:
 
     # ---- 9. streaming: the data plane and the mapper's loop
     failed += drive_streaming(torch, device, smi)
+
+    # ---- 10. the monocular SLAM mode
+    failed += drive_mono(torch, device, smi)
 
     torch.cuda.synchronize()
     if failed:

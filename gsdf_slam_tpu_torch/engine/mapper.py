@@ -1,4 +1,4 @@
-"""GaussianMapper: the streaming training loop, synchronous, on one device.
+"""GaussianMapper: the streaming training loop on one device.
 
 Port of `gsdf_slam_tpu/engine/mapper.py` (GaussianMapper,
 include/gaussian_mapper.h:102-177, src/gaussian_mapper.cpp). The mapper
@@ -16,27 +16,36 @@ and the surgery of `models/gaussian_model.py`:
     drawn from a `torch.Generator` seeded from `seed`;
   * cached binning: each (keyframe, pyramid level)'s `BinningCache` is
     reused for up to rebin_interval - 1 steps while the model's count,
-    generation and the image size are those it was built for, and every
-    surgery drops them all;
+    generation and the image size are those it was built for; every
+    surgery drops them all, a keyframe's pose correction drops its own;
   * a precomputed sky mask and camera undistortion (:172-275);
-  * results: 3DGS-format PLY + cameras.json + cfg_args (:659-775).
+  * the SLAM feed (`feed_keyframe`): RGB-D backprojection, and for an
+    image with no depth the monocular inactive-geometry densify (tracker
+    points, the map's depth render, a flat prior; a depth cache flushed
+    through increase_pcd every max_depth_cached keyframes);
+  * tracker pose corrections, with existence pruning after a large one;
+  * pipelined metrics (`metrics_pipeline_depth` steps in flight, each
+    read from its own pinned host buffer behind a CUDA event, resolved in
+    order);
+  * checkpoints in the JAX package's `.npz` format, both ways;
+  * the live parameter channel (get/set_variable_parameters);
+  * results: 3DGS-format PLY + cameras.json + cfg_args (:659-775), and
+    the keyframe image record.
 
 Training images are held as tensors on the mapper's device (the card
-unless told otherwise). Each step reads its loss and PSNR with one
-`.tolist()`; its pair count is already on the host. The map is sized to
-its live Gaussians and the pairs exactly, so the JAX package's
-capacities, pair autosizing, overflow redo loops, compile prewarm and
-device-scalar caches have no counterpart here.
+unless told otherwise). A synchronous step reads its loss and PSNR with
+one `.tolist()`; its pair count is already on the host. The map is sized
+to its live Gaussians and the pairs exactly, so the JAX package's
+capacities, pair autosizing, overflow redo and replay loops, compile
+prewarm and device-scalar caches have no counterpart here.
 
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-the pipelined metrics (`metrics_pipeline_depth > 0`), the multi-device
-`mesh`, live sky segmentation (`skyseg_onnx_path`), the monocular
-inactive-geometry densify, tracker pose updates, checkpoints, the live
-parameter channel and keyframe image recording.
+the multi-device `mesh` and live sky segmentation (`skyseg_onnx_path`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import random
@@ -48,18 +57,26 @@ import torch
 
 from ..data.loader import DataLoader, FrameData
 from ..io.ply import gaussians_to_ply_dict, ply_dict_to_gaussians, read_ply, write_ply, write_sparse_points_ply
-from ..models.gaussian_model import GaussianModel, densify_and_prune, increase_pcd, reset_opacity
-from ..models.optimizer import AdamState
+from ..models.gaussian_model import (
+    STATS, GaussianModel, densify_and_prune, increase_pcd, prune_young, reset_opacity,
+)
+from ..models.optimizer import PARAM_GROUPS, AdamState
 from ..ops.rasterize import RasterizeConfig
 from ..ops.transforms import CameraMatrices
+from ..utils import rotation_angle
 from ..utils.observability import PhaseTimer
 from .keyframe import Camera, Keyframe, rot_to_quat_wxyz
 from .scene import Scene
 from .settings import MapperSettings
-from .train import render_state, train_step
+from .train import render_depth_state, render_state, train_step
+from .variable_params import VariableParameters
 
 # the most binning caches held at once (the JAX mapper's bound, :925)
 MAX_BIN_CACHES = 32
+# where a monocular keyframe's depth samples came from, by code
+MONO_SOURCES = ("tracker", "render", "prior")
+# returned by _single_step_phase for a step whose metrics are in flight
+_PENDING = object()
 
 
 def _not_ported(what: str, item: str):
@@ -83,8 +100,6 @@ class GaussianMapper:
         self._bg = {False: torch.zeros(3, device=self.device), True: torch.ones(3, device=self.device)}
         if mesh is not None:
             raise _not_ported("multi-device mapping (mesh)", "A6")
-        if self.settings.metrics_pipeline_depth > 0:
-            raise _not_ported("pipelined metrics (metrics_pipeline_depth > 0)", "A2b.1")
         if self.settings.skyseg_onnx_path:
             raise _not_ported("live sky segmentation (skyseg_onnx_path)", "A5")
         self.dataloader = dataloader
@@ -114,6 +129,14 @@ class GaussianMapper:
         self.last_binning: str | None = None
         self.binning_counts: Counter = Counter()
         self._stopped = False
+        # pipelined metrics (settings.metrics_pipeline_depth): the records of
+        # dispatched steps whose metrics are not read yet, oldest first, and
+        # the last resolved step's metrics
+        self._pending: list[dict] = []
+        self._last_resolved: dict | None = None
+        # if a list, every resolved step's record (iteration, fid, binning,
+        # count, loss, psnr) is appended to it, in step order
+        self.step_log: list[dict] | None = None
         # setShDegree/oneUpShDegree (gaussian_model.cpp:103-112); None is
         # the max degree, which the reference's run() forces (:375)
         self.active_sh_degree: int | None = None
@@ -121,6 +144,19 @@ class GaussianMapper:
         # gaussian_model.cpp:955-996)
         self.sparse_points_xyz: list[np.ndarray] = []
         self.sparse_points_color: list[np.ndarray] = []
+        # the monocular densify's depth cache (depth_cached_,
+        # depth_cache_points_/colors_, include/gaussian_mapper.h:259-262):
+        # sample clouds pooled across keyframes, flushed into increase_pcd
+        # every max_depth_cached keyframes; and the samples kept, by source
+        self.depth_cached = 0
+        self.depth_cache_points: list[np.ndarray] = []
+        self.depth_cache_colors: list[np.ndarray] = []
+        self.mono_sources: Counter = Counter()
+        # the last monocular keyframe's samples: pixel rows and columns, the
+        # depth each got (NaN where none), its source (-1 where none), and
+        # the depth render's depth and coverage where it was read (NaN
+        # elsewhere)
+        self.last_mono_samples: dict[str, np.ndarray] | None = None
         # per-camera undistortion (gaussian_mapper.cpp:172-204), built at
         # ingest when distortion is present
         self._undistorters: dict[tuple, object] = {}
@@ -136,6 +172,7 @@ class GaussianMapper:
                 break
             self.ingest_frame(i, self.dataloader.get_item(i))
             self.train_for_one_iteration()
+        self.flush_metrics()
 
     def signal_stop(self) -> None:
         self._stopped = True
@@ -145,7 +182,9 @@ class GaussianMapper:
         """Register camera and keyframe and grow the model from the frame's
         cloud, of which the first `ingest_capacity` points are used.
         `intrinsics` (a CameraIntrinsics), if given, is kept for this and
-        later frames; else the dataloader's, else a 90-degree camera."""
+        later frames; else the dataloader's, else a 90-degree camera. Does
+        not resolve steps in flight: their metrics are already on their
+        way to the host, and the ingest's host work overlaps them."""
         if intrinsics is not None:
             self._feed_intrinsics = intrinsics
         intr = self.dataloader.frames.intrinsics if self.dataloader else None
@@ -259,10 +298,15 @@ class GaussianMapper:
             if mask is not None:
                 self._images[("mask", kf.fid, lvl)] = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
 
-    def _invalidate_binning_caches(self) -> None:
-        """Drop every frozen pair permutation: called on every live-set
-        mutation (surgery, ingest, load)."""
-        self._bin_cache.clear()
+    def _invalidate_binning_caches(self, fid: int | None = None) -> None:
+        """Drop frozen pair permutations: all of them on every live-set
+        mutation (surgery, ingest, load), or, with `fid`, that keyframe's
+        at every level, on its pose correction."""
+        if fid is None:
+            self._bin_cache.clear()
+        else:
+            for k in [k for k in self._bin_cache if k[0] == fid]:
+                del self._bin_cache[k]
 
     # ------------------------------------------------------------- sampling
     def _use_one_random_sliding_window_keyframe(self) -> Keyframe | None:
@@ -296,14 +340,28 @@ class GaussianMapper:
         """trainForOneIteration (:335-468) with the cadence on the host:
         sample a keyframe, take one step, run the cadence due at this
         iteration. Returns the step's loss, psnr, count and total_pairs, or
-        None when there is nothing to train on."""
+        None when there is nothing to train on.
+
+        With metrics_pipeline_depth > 0 the returned metrics are the last
+        resolved step's, up to that many steps old, and a placeholder with
+        "pending": True before the first resolve; the in-flight steps are
+        resolved before the cadence's surgery and when there is no keyframe
+        to train on (the JAX mapper's contract)."""
         if not self.initial_mapped:
             return None
         res = self._single_step_phase()
         if res is None:
+            self.flush_metrics()
             return None
+        if res is _PENDING:
+            if self._cadence_due(self.iteration):
+                self.flush_metrics()
+                self._cadence_phase(self.iteration)
+            if self._last_resolved is not None:
+                return self._last_resolved
+            return {"loss": float("nan"), "psnr": float("nan"), "count": -1, "total_pairs": -1, "pending": True}
         self._cadence_phase(self.iteration)
-        return self._consume_metrics(self.iteration, *res)
+        return self._consume_metrics(res)
 
     def _single_step_phase(self):
         kf = self._use_one_random_sliding_window_keyframe()
@@ -319,21 +377,30 @@ class GaussianMapper:
             level = n_levels
         h, w = self._images[("gt", kf.fid, level)].shape[:2]
         self._last_kf = kf
-        return self._sync_step(kf, level, h, w, self.iteration)
-
-    def _sync_step(self, kf: Keyframe, level: int, h: int, w: int, iteration: int):
-        """One step and its blocking metrics read, depth 0 (the
-        reference's semantics: it reads loss.item() every iteration,
-        gaussian_mapper.cpp:437). Returns (loss, psnr, count, total_pairs)."""
-        rec = self._dispatch_train_step(kf, level, h, w, iteration)
+        depth = int(s.metrics_pipeline_depth)
+        if depth <= 0:
+            self.flush_metrics()  # a depth lowered while steps were in flight
+        rec = self._dispatch_train_step(kf, level, h, w, self.iteration, pipelined=depth > 0)
         self._commit_bin_cache(rec)
-        return rec["loss"], rec["psnr"], rec["count"], rec["total_pairs"]
+        if depth <= 0:
+            # the reference's semantics: it reads loss.item() every
+            # iteration (gaussian_mapper.cpp:437)
+            return rec
+        self._pending.append(rec)
+        while len(self._pending) > depth:
+            self._consume_metrics(self._resolve(self._pending.pop(0)))
+        return _PENDING
 
-    def _dispatch_train_step(self, kf: Keyframe, level: int, h: int, w: int, iteration: int) -> dict:
-        """The cache decision, one train_step and its loss and PSNR, read
-        with one `.tolist()` (the pair count is a host tensor: the
-        binning's own read-back); the "train_step" phase runs from the call
-        to that read, so to the device's completion of the step."""
+    def _dispatch_train_step(self, kf: Keyframe, level: int, h: int, w: int, iteration: int,
+                             pipelined: bool = False) -> dict:
+        """The cache decision and one train_step. Synchronous, it reads the
+        loss and PSNR with one `.tolist()` (the pair count is a host tensor:
+        the binning's own read-back), and the "train_step" phase runs from
+        the call to that read, so to the device's completion of the step.
+        `pipelined`, it copies them with non_blocking=True into a pinned
+        host buffer of this step's own and records a CUDA event after the
+        copy (on the CPU the pair itself is kept), for `_resolve`; the
+        phase then ends at the dispatch."""
         s = self.settings
         rk = (kf.fid, level)
         # Cross-step binning persistence (JAX :771-797): reuse this
@@ -361,6 +428,7 @@ class GaussianMapper:
 
         gt = self._images[("gt", kf.fid, level)]
         mask = self._images.get(("mask", kf.fid, level))
+        rec = {"rk": rk, "hw": (h, w), "binning": binning, "iteration": iteration, "kf": kf}
         with self.timer.phase("train_step"):
             res = train_step(
                 self.model,
@@ -378,14 +446,37 @@ class GaussianMapper:
                 binning_cache=use_cache,
                 export_binning_cache=export_cache,
             )
-            metrics, built_cache = res if export_cache else (res, None)
-            loss, psnr_v = torch.stack([metrics.loss, metrics.psnr]).tolist()
+            metrics, rec["built_cache"] = res if export_cache else (res, None)
+            pair = torch.stack([metrics.loss, metrics.psnr])
+            if not pipelined:
+                rec["loss"], rec["psnr"] = pair.tolist()
+            elif pair.is_cuda:
+                rec["host"] = torch.empty(2, dtype=torch.float32, pin_memory=True)
+                rec["host"].copy_(pair, non_blocking=True)
+                rec["event"] = torch.cuda.Event()
+                rec["event"].record()
+            else:
+                rec["host"] = pair
+        rec["count"], rec["total_pairs"] = metrics.count, int(metrics.total_pairs)
         self.last_binning = binning
         self.binning_counts[binning] += 1
-        return {
-            "rk": rk, "hw": (h, w), "binning": binning, "built_cache": built_cache,
-            "loss": loss, "psnr": psnr_v, "count": metrics.count, "total_pairs": int(metrics.total_pairs),
-        }
+        return rec
+
+    @staticmethod
+    def _resolve(rec: dict) -> dict:
+        """An in-flight step's loss and PSNR, read from its host buffer once
+        its event has passed."""
+        if "event" in rec:
+            rec.pop("event").synchronize()
+        rec["loss"], rec["psnr"] = rec.pop("host").tolist()
+        return rec
+
+    def flush_metrics(self) -> None:
+        """Resolve every in-flight step, in order (metrics_pipeline_depth):
+        before the cadence's surgery, pose corrections, checkpoints and the
+        PLY save and load, and at the end of `run()`."""
+        while self._pending:
+            self._consume_metrics(self._resolve(self._pending.pop(0)))
 
     def _commit_bin_cache(self, rec: dict) -> None:
         if rec["binning"] == "export":
@@ -450,19 +541,27 @@ class GaussianMapper:
                 reset_opacity(self.model, self.adam)
                 self._invalidate_binning_caches()
 
-    def _consume_metrics(self, iteration, loss, psnr_v, count_v, total_pairs) -> dict:
-        """Metrics-side post-step work: the loss EMA, the report and the
-        keyframe image record."""
+    def _consume_metrics(self, rec: dict) -> dict:
+        """Metrics-side post-step work for a step with its loss read: the
+        loss EMA, the report, the keyframe image record and the step log.
+        At once when synchronous; at resolve time, in step order, when
+        pipelined."""
         s = self.settings
+        it, loss = rec["iteration"], rec["loss"]
         self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
-        if s.training_report_interval and iteration % s.training_report_interval == 0:
+        if s.training_report_interval and it % s.training_report_interval == 0:
             print(
-                f"[mapper] iter {iteration}: ema_loss {self.ema_loss:.5f} points {count_v} pairs "
-                f"{total_pairs} [{self.timer.report()}]"
+                f"[mapper] iter {it}: ema_loss {self.ema_loss:.5f} points {rec['count']} pairs "
+                f"{rec['total_pairs']} [{self.timer.report()}]"
             )
-        if self.result_dir and s.keyframe_record_interval and iteration % s.keyframe_record_interval == 0:
-            self._record_keyframe_images(self._last_kf)
-        return {"loss": loss, "psnr": psnr_v, "count": int(count_v), "total_pairs": int(total_pairs)}
+        if self.result_dir and s.keyframe_record_interval and it % s.keyframe_record_interval == 0:
+            self._record_keyframe_images(rec["kf"])
+        if self.step_log is not None:
+            self.step_log.append({"iteration": it, "fid": rec["kf"].fid, "binning": rec["binning"],
+                                  "count": int(rec["count"]), "loss": loss, "psnr": rec["psnr"]})
+        self._last_resolved = {"loss": loss, "psnr": rec["psnr"], "count": int(rec["count"]),
+                               "total_pairs": int(rec["total_pairs"])}
+        return self._last_resolved
 
     # ------------------------------------------------------- SLAM-mode feed
     def feed_keyframe(
@@ -477,13 +576,13 @@ class GaussianMapper:
     ) -> Keyframe:
         """Tracking-fed keyframe ingestion (Photo-SLAM operating mode): a
         host-side tracker pushes a pose, an image, and either a sparse
-        map-point cloud or an RGB-D depth image, which is backprojected at
-        a stride of 4 ("ingest.backproject"). Returns the registered
-        keyframe; call train_for_one_iteration() to optimize. A keyframe
-        with no depth while do_inactive_geo_densify is set needs the
-        monocular densify, which is not ported yet."""
-        if depth is None and self.settings.do_inactive_geo_densify:
-            raise _not_ported("the monocular inactive-geometry densify (do_inactive_geo_densify)", "A2b.2")
+        map-point cloud, an RGB-D depth image, which is backprojected at a
+        stride of 4 ("ingest.backproject"), or nothing for pure monocular.
+        A keyframe with no depth, while do_inactive_geo_densify is set,
+        then goes through the monocular inactive-geometry densify. Returns
+        the registered keyframe; call train_for_one_iteration() to
+        optimize."""
+        is_mono = depth is None
         if intrinsics is not None:
             self._feed_intrinsics = intrinsics
         if points is not None and len(points):
@@ -507,7 +606,10 @@ class GaussianMapper:
             colors=colors if colors is not None else np.zeros_like(points),
             image=np.asarray(image, np.float32),
         )
-        return self.ingest_frame(fid, frame)
+        kf = self.ingest_frame(fid, frame)
+        if is_mono and self.settings.do_inactive_geo_densify:
+            self._inactive_geo_densify(kf, sparse_world=points if len(points) else None)
+        return kf
 
     def _backproject(self, t_wc, image, depth, intrinsics):
         """World points and colours of an RGB-D frame at a stride of 4;
@@ -543,32 +645,251 @@ class GaussianMapper:
             return CameraIntrinsics(cam0.fx, cam0.fy, cam0.cx, cam0.cy, w, h)
         return CameraIntrinsics(w / 2.0, w / 2.0, (w - 1) / 2.0, (h - 1) / 2.0, w, h)
 
-    # ------------------------------------------------- not ported yet
+    # ----------------------------------------- inactive-geometry densify
+    def _inactive_geo_densify(self, kf: Keyframe, sparse_world: np.ndarray | None = None) -> None:
+        """Monocular inactive-geometry densification (the JAX mapper's
+        reconstruction of the members include/gaussian_mapper.h:252-262):
+        depths for a grid of samples of the keyframe, at a stride of
+        max(4, min(h, w) // 60), from
+
+          (a) the nearest projected tracker point within
+              inactive_geo_densify_max_pixel_dist ("mono.nearest": float64
+              numpy on the host, the first index of the least squared
+              distance),
+          (b) else the map's depth render where its coverage is over 0.5
+              and its depth over 0.2 ("mono.depth_render": K3 and K1 on
+              the card, gathered at the samples there; only those values
+              come back to the host),
+          (c) else, where no sample has a depth at all, the flat prior
+              monocular_init_depth,
+
+        backprojected into the world and cached; every max_depth_cached
+        keyframes the cache goes through increase_pcd in chunks of
+        ingest_capacity rows ("mono.increase_pcd"), whose voxel dedup
+        drops re-observations."""
+        s = self.settings
+        h, w = kf.image.shape[:2]
+        stride = max(4, min(h, w) // 60)
+        ys, xs = np.mgrid[stride // 2 : h : stride, stride // 2 : w : stride]
+        gy = ys.reshape(-1).astype(np.int64)
+        gx = xs.reshape(-1).astype(np.int64)
+        depth = np.full(gy.shape, np.nan, np.float32)
+        source = np.full(gy.shape, -1, np.int8)
+        rendered = np.full((2, len(gy)), np.nan, np.float32)
+        cam = kf.camera
+
+        if sparse_world is not None and len(sparse_world):
+            with self.timer.phase("mono.nearest"):
+                t = kf.t_cw.astype(np.float64)
+                pc = np.asarray(sparse_world, np.float64) @ t[:3, :3].T + t[:3, 3]
+                z = pc[:, 2]
+                ok = z > 0.2
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    u = cam.fx * pc[:, 0] / z + cam.cx
+                    v = cam.fy * pc[:, 1] / z + cam.cy
+                ok &= (u >= 0) & (u < w) & (v >= 0) & (v < h)
+                su, sv, sz = u[ok], v[ok], z[ok]
+                if len(sz):
+                    d2 = (gx[:, None] - su[None, :]) ** 2 + (gy[:, None] - sv[None, :]) ** 2
+                    j = np.argmin(d2, axis=1)
+                    near = d2[np.arange(len(gx)), j] <= s.inactive_geo_densify_max_pixel_dist**2
+                    depth[near] = sz[j[near]].astype(np.float32)
+                    source[near] = MONO_SOURCES.index("tracker")
+
+        todo = ~np.isfinite(depth)
+        if np.any(todo) and self.initial_mapped and self.model.count > 0:
+            with self.timer.phase("mono.depth_render"):
+                dep, cov = render_depth_state(
+                    self.model, kf.camera_matrices(s.z_near, s.z_far, device=self.device), self._raster_cfg(h, w)
+                )
+                flat = torch.as_tensor(gy[todo] * w + gx[todo], device=self.device)
+                rendered[:, todo] = torch.stack([dep.reshape(-1), cov.reshape(-1)])[:, flat].cpu().numpy()
+            dsel, csel = rendered[:, todo]
+            good = (csel > 0.5) & (dsel > 0.2)
+            idx = np.where(todo)[0][good]
+            depth[idx] = dsel[good]
+            source[idx] = MONO_SOURCES.index("render")
+
+        if not np.any(np.isfinite(depth)):
+            depth[:] = s.monocular_init_depth
+            source[:] = MONO_SOURCES.index("prior")
+
+        ok = np.isfinite(depth) & (depth > 0.2)
+        source[~ok] = -1
+        self.last_mono_samples = {"gy": gy, "gx": gx, "depth": np.where(ok, depth, np.nan), "source": source,
+                                  "rendered_depth": rendered[0], "coverage": rendered[1]}
+        if not np.any(ok):
+            return
+        zc = depth[ok].astype(np.float64)
+        xc = (gx[ok] - cam.cx) / cam.fx * zc
+        yc = (gy[ok] - cam.cy) / cam.fy * zc
+        pts_cam = np.stack([xc, yc, zc], axis=-1)
+        c2w = np.linalg.inv(kf.t_cw.astype(np.float64))
+        pts_w = (pts_cam @ c2w[:3, :3].T + c2w[:3, 3]).astype(np.float32)
+
+        self.depth_cache_points.append(pts_w)
+        self.depth_cache_colors.append(kf.image[gy[ok], gx[ok]].astype(np.float32))
+        self.mono_sources.update(MONO_SOURCES[c] for c in source[ok])
+        self.depth_cached += 1
+        if self.depth_cached >= max(1, s.max_depth_cached):
+            pts = np.concatenate(self.depth_cache_points, axis=0)
+            cols = np.concatenate(self.depth_cache_colors, axis=0)
+            self.depth_cache_points, self.depth_cache_colors = [], []
+            self.depth_cached = 0
+            self._ingest_points(pts, cols)
+
+    def _ingest_points(self, points: np.ndarray, colors: np.ndarray) -> None:
+        """Grow the model from host arrays in chunks of ingest_capacity rows
+        (the JAX mapper's padded ingest buffer): each chunk's voxel dedup
+        sees the rows the chunks before it appended, and its 3-NN scales
+        only its own kept points, so the chunking is part of the result."""
+        with self.timer.phase("mono.increase_pcd"):
+            for i in range(0, len(points), self.ingest_capacity):
+                increase_pcd(
+                    self.model, self.adam, points[i : i + self.ingest_capacity],
+                    colors[i : i + self.ingest_capacity], iteration=self.iteration, timer=self.timer,
+                )
+        self._invalidate_binning_caches()
+
+    # ------------------------------------------------ tracker pose updates
     def update_keyframe_pose(self, fid: int, t_wc: np.ndarray) -> None:
-        """Tracker pose correction (local BA / loop closure)."""
-        raise _not_ported("update_keyframe_pose", "A2b.3")
+        """A tracker pose correction (local BA, loop closure) of keyframe
+        `fid`: its t_cw and its camera matrices are replaced and its binning
+        caches dropped. A correction over large_rotation_threshold degrees
+        or large_translation_threshold metres (large_rot_th_ /
+        large_trans_th_, gaussian_mapper.cpp:17-18) then prunes the
+        Gaussians too young to be stable (`on_large_pose_change`). Unknown
+        keyframes are ignored. Resolves the steps in flight first."""
+        kf = self.scene.keyframes.get(fid)
+        if kf is None:
+            return
+        self.flush_metrics()
+        new_tcw = np.linalg.inv(np.asarray(t_wc, np.float64)).astype(np.float32)
+        rel_r = new_tcw[:3, :3].astype(np.float64) @ kf.t_cw[:3, :3].astype(np.float64).T
+        ang_deg = math.degrees(rotation_angle(rel_r))
+        dtr = float(np.linalg.norm(
+            np.asarray(t_wc, np.float64)[:3, 3] - np.linalg.inv(kf.t_cw.astype(np.float64))[:3, 3]
+        ))
+        kf.t_cw = new_tcw
+        kf._cam_matrices = None  # the images do not depend on the pose
+        self._invalidate_binning_caches(fid)
+        s = self.settings
+        if ang_deg > s.large_rotation_threshold or dtr > s.large_translation_threshold:
+            self.on_large_pose_change()
 
     def on_large_pose_change(self) -> None:
-        """Existence pruning after a big pose update."""
-        raise _not_ported("on_large_pose_change", "A2b.3")
+        """Existence pruning after a large pose correction: the Gaussians
+        with exist_since_iter > iteration - stable_num_iter_existence were
+        trained against poses that just moved and are dropped
+        (include/gaussian_mapper.h:275); 0 disables it. A prune starts a
+        new generation, so every binning cache goes."""
+        s = self.settings
+        if s.stable_num_iter_existence > 0 and self.initial_mapped:
+            self.flush_metrics()
+            prune_young(self.model, self.adam, self.iteration, s.stable_num_iter_existence)
+            self._invalidate_binning_caches()
 
+    # ----------------------------------------------- live parameter channel
+    def get_variable_parameters(self) -> VariableParameters:
+        """getVaribleParameters (gaussian_mapper.cpp:941-960)."""
+        s = self.settings
+        return VariableParameters(
+            position_lr_init=s.opt.position_lr_init,
+            feature_lr=s.opt.feature_lr,
+            opacity_lr=s.opt.opacity_lr,
+            scaling_lr=s.opt.scaling_lr,
+            rotation_lr=s.opt.rotation_lr,
+            percent_dense=s.opt.percent_dense,
+            lambda_dssim=s.opt.lambda_dssim,
+            opacity_reset_interval=s.opt.opacity_reset_interval,
+            densify_grad_th=s.opt.densify_grad_threshold,
+            densify_interval=s.opt.densification_interval,
+            new_kf_times_of_use=s.new_keyframe_times_of_use,
+            keep_training=not self._stopped,
+            do_gaus_pyramid_training=s.do_gaus_pyramid_training,
+            do_inactive_geo_densify=s.do_inactive_geo_densify,
+            stable_num_iter_existence=s.stable_num_iter_existence,
+        )
+
+    def set_variable_parameters(self, p: VariableParameters) -> None:
+        """setVaribleParameters (gaussian_mapper.cpp:962-982): the next step
+        reads the new values (train_step takes them as plain floats);
+        keep_training=False stops `run()`."""
+        s = self.settings
+        self.settings = dataclasses.replace(
+            s,
+            opt=dataclasses.replace(
+                s.opt,
+                position_lr_init=p.position_lr_init,
+                feature_lr=p.feature_lr,
+                opacity_lr=p.opacity_lr,
+                scaling_lr=p.scaling_lr,
+                rotation_lr=p.rotation_lr,
+                percent_dense=p.percent_dense,
+                lambda_dssim=p.lambda_dssim,
+                opacity_reset_interval=p.opacity_reset_interval,
+                densify_grad_threshold=p.densify_grad_th,
+                densification_interval=p.densify_interval,
+            ),
+            new_keyframe_times_of_use=p.new_kf_times_of_use,
+            do_gaus_pyramid_training=p.do_gaus_pyramid_training,
+            do_inactive_geo_densify=p.do_inactive_geo_densify,
+            stable_num_iter_existence=p.stable_num_iter_existence,
+        )
+        if not p.keep_training:
+            self.signal_stop()
+
+    # ---------------------------------------------------------- checkpoints
     def save_checkpoint(self, path: str | Path) -> None:
-        raise _not_ported("save_checkpoint", "A2b.4")
+        """A full training checkpoint (parameters, statistics, Adam moments
+        and step, the iteration), in the JAX package's `.npz` keys:
+        state.*, adam.m.*, adam.v.*, adam.step, iteration,
+        spatial_lr_scale, cameras_extent. The rows are the live ones, with
+        state.count equal to them; the JAX loader reads such a file, and
+        the JAX package's own pair-capacity keys are not written. Resolves
+        the steps in flight first."""
+        self.flush_metrics()
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        host = lambda t: t.detach().cpu().numpy()
+        m, adam = self.model, self.adam
+        blobs = {f"state.{k}": host(v) for k, v in m.params().items()}
+        blobs.update({f"state.{k}": host(getattr(m, k)) for k in STATS})
+        blobs.update({f"adam.m.{k}": host(v) for k, v in adam.m.items()})
+        blobs.update({f"adam.v.{k}": host(v) for k, v in adam.v.items()})
+        blobs.update({
+            "state.count": np.asarray(m.count, np.int32),
+            "adam.step": np.asarray(adam.step, np.int32),
+            "iteration": np.asarray(self.iteration),
+            "spatial_lr_scale": np.asarray(self.spatial_lr_scale),
+            "cameras_extent": np.asarray(self.scene.cameras_extent),
+        })
+        np.savez_compressed(path, **blobs)
 
     def load_checkpoint(self, path: str | Path) -> None:
-        raise _not_ported("load_checkpoint", "A2b.4")
-
-    def get_variable_parameters(self):
-        """getVaribleParameters (gaussian_mapper.cpp:941-960)."""
-        raise _not_ported("get_variable_parameters", "A2b.5")
-
-    def set_variable_parameters(self, p) -> None:
-        """setVaribleParameters (gaussian_mapper.cpp:962-982)."""
-        raise _not_ported("set_variable_parameters", "A2b.5")
-
-    def _record_keyframe_images(self, kf: Keyframe) -> None:
-        """Record.keyframe_record_interval: rendered and gt images."""
-        raise _not_ported("keyframe image recording (keyframe_record_interval)", "A2b.6")
+        """Restore a checkpoint of either package onto the mapper's device:
+        the first state.count rows (a JAX checkpoint's rows are padded to
+        its capacity). The model starts a new generation and every binning
+        cache is dropped. Resolves the steps in flight first."""
+        self.flush_metrics()
+        with np.load(path) as z:
+            n = int(z["state.count"])
+            rows = lambda k: torch.as_tensor(z[k][:n], device=self.device)
+            model = GaussianModel({k: rows(f"state.{k}") for k in PARAM_GROUPS})
+            for k in STATS:
+                setattr(model, k, rows(f"state.{k}").to(getattr(model, k).dtype))
+            self.adam = AdamState(
+                m={k: rows(f"adam.m.{k}").to(torch.float32) for k in PARAM_GROUPS},
+                v={k: rows(f"adam.v.{k}").to(torch.float32) for k in PARAM_GROUPS},
+                step=int(z["adam.step"]),
+            )
+            self.iteration = int(z["iteration"])
+            self.spatial_lr_scale = float(z["spatial_lr_scale"])
+            self.scene.cameras_extent = float(z["cameras_extent"])
+        model.generation = self.model.generation + 1 if self.model is not None else 0
+        self.model = model
+        self.initial_mapped = True
+        self._invalidate_binning_caches()
 
     # ---------------------------------------------------------- SH degree
     def set_sh_degree(self, degree: int | None) -> None:
@@ -605,7 +926,8 @@ class GaussianMapper:
     def save_ply(self, out_dir: str | Path | None = None) -> Path:
         """savePly (:659-755): point_cloud/iteration_N/point_cloud.ply +
         cameras.json + cfg_args, 3DGS-viewer compatible, and the
-        keyframe_used_times file."""
+        keyframe_used_times file. Resolves the steps in flight first."""
+        self.flush_metrics()
         base = Path(out_dir or self.result_dir)
         it_dir = base / "point_cloud" / f"iteration_{self.iteration}"
         write_ply(it_dir / "point_cloud.ply", gaussians_to_ply_dict(self.model))
@@ -642,6 +964,22 @@ class GaussianMapper:
         self._write_keyframe_used_times(base)
         return it_dir / "point_cloud.ply"
 
+    def _record_keyframe_images(self, kf: Keyframe) -> None:
+        """Record.keyframe_record_interval: the render of keyframe `kf`'s
+        view and its gt image, as record/iter{N}_kf{fid}_{rendered,gt}.png
+        under result_dir (N the mapper's iteration when written, as in the
+        JAX package); cv2 imported here."""
+        import cv2
+
+        out = Path(self.result_dir) / "record"
+        out.mkdir(parents=True, exist_ok=True)
+        img = self.render_from_pose(kf.t_cw, kf.camera.width, kf.camera.height, kf.camera.fovx, kf.camera.fovy)
+        for name, arr in (("rendered", img), ("gt", kf.image)):
+            cv2.imwrite(
+                str(out / f"iter{self.iteration}_kf{kf.fid}_{name}.png"),
+                cv2.cvtColor((np.clip(arr, 0, 1) * 255).astype(np.uint8), cv2.COLOR_RGB2BGR),
+            )
+
     def _write_keyframe_used_times(self, base: Path) -> None:
         """keyframe_used_times log (:757-775)."""
         lines = [f"{fid} {times}" for fid, times in sorted(self.kfs_used_times.items())]
@@ -649,7 +987,9 @@ class GaussianMapper:
 
     def load_ply(self, ply_path: str | Path) -> None:
         """loadPly (:984-1059): a view-only restore (no optimizer state,
-        like the reference), on the mapper's device."""
+        like the reference), on the mapper's device. Resolves the steps in
+        flight first."""
+        self.flush_metrics()
         self.model = ply_dict_to_gaussians(read_ply(ply_path), device=self.device)
         self.adam = AdamState.init(self.model.params())
         self.initial_mapped = True

@@ -52,6 +52,16 @@ after every step and the binning of every step (fresh, export, cached)
 equal; losses within STREAM_LOSS_ATOL, the bar of the card's training
 steps against the CPU's in chip_smoke.py.
 
+A short mono stream (probes/mono.py) on the card against the CPU: each
+keyframe's samples from tracker points and the prior bit-equal in depth;
+those from the depth render (K3 and K1 on the card) kept on both sides
+within K1's bar, FWD_SMALL on coverage and 4 x FWD_SMALL x max |z| on the
+depth (tests/test_torch_depth.py's two-term bar); a sample kept on one
+side only must lie at the selection's frontier, the CPU's coverage within
+FWD_SMALL of 0.5 or its depth within the depth bar of 0.2, and such
+samples are counted. Counts after every feed equal, and the step log as a
+short stream's.
+
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
 chunks). That moves log T_eff by at least log1p(-1/255) and, for `notrans`,
@@ -317,6 +327,54 @@ def colorize_check(got, want) -> dict:
         "colors_err": float((got.colors[valid] - want.colors[valid]).abs().max()) if valid.any() else 0.0,
     }
     out["ok"] = out["valid_equal"] and bool(torch.isfinite(got.points_world).all())
+    return out
+
+
+def mono_samples_check(got: dict, want: dict) -> dict:
+    """A mono keyframe's samples (`GaussianMapper.last_mono_samples` with
+    the view's `z_max`) on the card against the CPU's."""
+    import numpy as np
+
+    from ..engine.mapper import MONO_SOURCES
+
+    depth_bar = 4 * FWD_SMALL * want["z_max"]
+    src_g, src_w = got["source"], want["source"]
+    render = MONO_SOURCES.index("render")
+    fixed = (src_w >= 0) & (src_w != render)  # tracker points and the prior
+    fixed_equal = bool(np.array_equal(src_g[fixed], src_w[fixed])
+                       and np.array_equal(got["depth"][fixed], want["depth"][fixed]))
+    both = (src_g == render) & (src_w == render)
+    one = (src_g == render) != (src_w == render)
+    cov, dep = want["coverage"][one], want["rendered_depth"][one]
+    at_frontier = (np.abs(cov - 0.5) <= FWD_SMALL) | (np.abs(dep - 0.2) <= depth_bar)
+    depth_err = float(np.abs(got["depth"][both] - want["depth"][both]).max()) if both.any() else 0.0
+    out = {
+        "samples": len(src_w), **{k: int((src_w == i).sum()) for i, k in enumerate(MONO_SOURCES)},
+        "fixed_equal": fixed_equal, "frontier": int(one.sum()), "depth_err": depth_err, "depth_bar": depth_bar,
+    }
+    out["ok"] = (fixed_equal and bool(at_frontier.all()) and depth_err <= depth_bar
+                 and np.array_equal(got["gy"], want["gy"]) and np.array_equal(got["gx"], want["gx"]))
+    return out
+
+
+def mono_run_check(got: dict, want: dict) -> dict:
+    """`probes/mono.py::short_mono_run` on the card against the CPU: every
+    keyframe's samples (mono_samples_check), the counts after every feed,
+    and the step log (stream_check). Once a sample differs at the frontier
+    the two maps differ by a Gaussian, so the counts and steps are compared
+    only while none has."""
+    per_kf = [mono_samples_check(g, w) for g, w in zip(got["samples"], want["samples"])]
+    frontier = [r["frontier"] for r in per_kf]
+    upto = next((i for i, f in enumerate(frontier) if f), len(per_kf))
+    steps_upto = sum(1 for r in want["log"] if r["fid"] < upto)
+    out = {
+        "keyframes": len(per_kf), "frontier": sum(frontier), "compared_keyframes": upto,
+        "samples_ok": all(r["ok"] for r in per_kf), "depth_err": max(r["depth_err"] for r in per_kf),
+        "sources": {k: sum(r[k] for r in per_kf) for k in ("tracker", "render", "prior")},
+        "counts_equal": got["counts"][:upto] == want["counts"][:upto],
+        "steps": stream_check(got["log"][:steps_upto], want["log"][:steps_upto]),
+    }
+    out["ok"] = out["samples_ok"] and out["counts_equal"] and out["steps"]["ok"]
     return out
 
 

@@ -560,3 +560,40 @@ def test_short_stream_on_the_card_matches_the_cpu(dev):
     assert kernels.LAUNCHES["tile_ranges_pack"] == n["export"] + n.get("fresh", 0)
     assert kernels.LAUNCHES["blend_fwd"] == n["cached"] + n.get("fresh", 0)
     assert kernels.LAUNCHES["blend_bwd"] == len(got)
+
+
+def test_short_mono_stream_on_the_card_matches_the_cpu(dev):
+    """chip_smoke.py's 10d: probes/mono.py's short mono stream (64x64, the
+    depth cache of 2, one small and one large correction, rebin 4) on the
+    card at pipeline depth 2 against the CPU: the samples (tracker and
+    prior bit-equal, the depth render's within K1's bar), counts and steps;
+    the card's steps and depth renders go through K3, K1, K2 and K4."""
+    from gsdf_slam_tpu_torch.probes import mono
+
+    frames = make_sequence(mono.SHORT["frames"], mono.SHORT["size"], mono.SHORT["size"])
+    want = mono.short_mono_run("cpu", 2, frames=frames)
+    kernels.reset_launch_counts()
+    got = mono.short_mono_run(dev, 2, frames=frames)
+    res = checks.mono_run_check(got, want)
+    assert res["ok"], res
+    renders = got["mapper"].timer.counts["mono.depth_render"]
+    n = got["mapper"].binning_counts
+    assert renders > 0 and kernels.LAUNCHES["blend_fwd"] == n["cached"] + renders
+    assert kernels.LAUNCHES["tile_ranges_pack"] == n["export"] + renders
+    assert kernels.LAUNCHES["blend_bwd"] == len(got["log"]) and kernels.LAUNCHES["blend_fwd_export"] == n["export"]
+
+
+@pytest.mark.parametrize("depth_cache", [1, 10])
+def test_image_only_keyframes_on_the_card_match_the_cpu(dev, depth_cache):
+    """chip_smoke.py's 10d, image only: keyframes with no depth and no
+    tracker points; at a depth cache of 10 the first nine steps train an
+    empty map on the card."""
+    from gsdf_slam_tpu_torch.probes import mono
+
+    frames = make_sequence(11, 64, 64)
+    settings = mono.mono_settings(max_depth_cached=depth_cache)
+    want = mono.image_only_run("cpu", settings, frames)
+    got = mono.image_only_run(dev, settings, frames)
+    assert got["counts"] == want["counts"] and got["counts"][-1] > 0
+    res = checks.stream_check(got["log"], want["log"])
+    assert res["ok"], res

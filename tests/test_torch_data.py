@@ -21,6 +21,7 @@ import pytest
 import torch
 from test_data import fake_kitti  # noqa: F401  (fixture)
 from test_euroc import fake_euroc  # noqa: F401  (fixture)
+from torch_port_helpers import write_tum_sequence
 
 from gsdf_slam_tpu import data as jdata
 from gsdf_slam_tpu.data import base_parser as jbase
@@ -280,20 +281,7 @@ def test_replica_and_tum_rgbd_loaders(tmp_path):
         _frames_equal(j.get_item(i), t.get_item(i))
 
     # TUM: rgb.txt, depth.txt, groundtruth.txt, fr1 intrinsics
-    seq = tmp_path / "tum"
-    (seq / "rgb").mkdir(parents=True)
-    (seq / "depth").mkdir()
-    rgb_lines, depth_lines, gt_lines = [], [], []
-    for i in range(3):
-        ts = 1305031102.175304 + 0.1 * i
-        cv2.imwrite(str(seq / f"rgb/{ts:.6f}.png"), rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
-        cv2.imwrite(str(seq / f"depth/{ts:.6f}.png"), rng.integers(0, 20000, (480, 640)).astype(np.uint16))
-        rgb_lines.append(f"{ts:.6f} rgb/{ts:.6f}.png")
-        depth_lines.append(f"{ts + 0.003:.6f} depth/{ts:.6f}.png")
-        gt_lines.append(f"{ts + 0.004:.6f} {0.01 * i} 0.2 -0.1 0.1 0.2 0.3 0.9")
-    (seq / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_lines) + "\n")
-    (seq / "depth.txt").write_text("# depth\n" + "\n".join(depth_lines) + "\n")
-    (seq / "groundtruth.txt").write_text("# gt\n" + "\n".join(gt_lines) + "\n")
+    seq = write_tum_sequence(tmp_path / "tum", rng)
     j = jdata.DataLoader(seq, "tum", cloud_stride=8)
     t = tdata.DataLoader(seq, "tum", cloud_stride=8, device="cpu")
     _same(j.frames, t.frames)

@@ -355,33 +355,9 @@ def _mapper_with(**kw):
     return GaussianMapper(settings=MapperSettings(**kw), device="cpu")
 
 
-def _fed():
-    m = _mapper_with(do_inactive_geo_densify=False)
-    m.feed_keyframe(0, np.eye(4, dtype=np.float32), np.zeros((8, 8, 3), np.float32),
-                    points=np.random.default_rng(0).uniform(1, 2, (16, 3)), colors=np.zeros((16, 3)))
-    return m
-
-
-def _record():
-    m = _fed()
-    m.result_dir = "out"
-    m.settings = dataclasses.replace(m.settings, keyframe_record_interval=1)
-    m.train_for_one_iteration()
-
-
 NOT_PORTED = {
     "mesh": lambda: GaussianMapper(mesh=object(), device="cpu"),
-    "metrics_pipeline_depth": lambda: _mapper_with(metrics_pipeline_depth=2),
     "skyseg_onnx_path": lambda: _mapper_with(skyseg_onnx_path="skyseg.onnx"),
-    "inactive_geo_densify": lambda: _mapper_with().feed_keyframe(
-        0, np.eye(4, dtype=np.float32), np.zeros((8, 8, 3), np.float32)),
-    "update_keyframe_pose": lambda: _fed().update_keyframe_pose(0, np.eye(4)),
-    "on_large_pose_change": lambda: _fed().on_large_pose_change(),
-    "save_checkpoint": lambda: _fed().save_checkpoint("ckpt.npz"),
-    "load_checkpoint": lambda: _fed().load_checkpoint("ckpt.npz"),
-    "get_variable_parameters": lambda: _fed().get_variable_parameters(),
-    "set_variable_parameters": lambda: _fed().set_variable_parameters(None),
-    "keyframe_record_interval": lambda: _record(),
 }
 
 
@@ -391,17 +367,29 @@ def test_modes_left_for_later_raise(what):
         NOT_PORTED[what]()
 
 
-def test_port_kitti_config_reads_like_the_jax_one():
-    """gsdf_slam_tpu_torch/cfg/kitti.yaml holds cfg/kitti.yaml's keys."""
+def _assert_config_reads_like_the_jax_one(name):
+    """gsdf_slam_tpu_torch/cfg/<name> holds cfg/<name>'s keys."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parent.parent
-    want = JSettings.from_yaml(root / "cfg" / "kitti.yaml")
-    got = MapperSettings.from_yaml(root / "gsdf_slam_tpu_torch" / "cfg" / "kitti.yaml")
+    want = JSettings.from_yaml(root / "cfg" / name)
+    got = MapperSettings.from_yaml(root / "gsdf_slam_tpu_torch" / "cfg" / name)
     for f in dataclasses.fields(got):
         a, b = getattr(got, f.name), getattr(want, f.name)
         assert (dataclasses.asdict(a) == dataclasses.asdict(b)) if dataclasses.is_dataclass(a) else a == b, f.name
+    return got
+
+
+def test_port_kitti_config_reads_like_the_jax_one():
+    got = _assert_config_reads_like_the_jax_one("kitti.yaml")
     assert got.opt.densify_until_iter == 3 and got.rebin_interval_after_densify == 8
+
+
+def test_port_tum_mono_config_reads_like_the_jax_one():
+    got = _assert_config_reads_like_the_jax_one("tum_mono.yaml")
+    assert got.do_inactive_geo_densify and got.max_depth_cached == 10 and got.stable_num_iter_existence == 1
+    assert (got.large_rotation_threshold, got.large_translation_threshold) == (30.0, 1.0)
+    assert got.opt.densification_interval == 100 and got.do_gaus_pyramid_training
 
 
 def test_stream_entry_point_on_the_cpu(capsys):
@@ -420,3 +408,44 @@ def test_stream_entry_point_on_the_cpu(capsys):
     _, steps = stream.run_stream(4, 48, 32, "cpu", rebin_interval=4)
     assert [s["binning"] for s in steps].count("cached") > 0
     assert [s["iteration"] for s in steps] == list(range(1, 14))
+
+
+def test_stream_pipeline_gives_the_synchronous_steps(capsys):
+    """`--pipeline 2` (the default) against `--pipeline 0`: the same
+    iterations, keyframes, counts, binning and losses, and the depth in
+    the JSON line."""
+    from gsdf_slam_tpu_torch import stream
+
+    lines = {}
+    for depth in ("2", "0"):
+        assert stream.main(["--frames", "3", "--res", "48x32", "--pipeline", depth, "--device", "cpu"]) == 0
+        lines[depth] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert lines["2"]["pipeline_depth"] == 2 and lines["0"]["pipeline_depth"] == 0
+    assert lines["2"]["iterations"] == lines["0"]["iterations"] > 3
+    _, sync = stream.run_stream(3, 48, 32, "cpu")
+    _, pipe = stream.run_stream(3, 48, 32, "cpu", pipeline=2)
+    assert pipe == sync and [s["iteration"] for s in pipe] == list(range(1, len(pipe) + 1))
+
+
+def test_tum_mono_demo_on_the_cpu(tmp_path, capsys):
+    """gsdf_slam_tpu_torch.demo.train_tum_mono over a TUM-layout sequence
+    (tests/test_torch_data.py's fixture, 10 frames): image-only keyframes
+    grow the map through the inactive-geometry densify (the first flush of
+    the depth cache: the prior's samples), and the results are written."""
+    pytest.importorskip("cv2")
+    from torch_port_helpers import write_tum_sequence
+
+    from gsdf_slam_tpu_torch.demo import train_tum_mono
+
+    # ten keyframes: the demo's depth cache (10 keyframes) flushes once
+    seq = write_tum_sequence(tmp_path / "tum", np.random.default_rng(7), n=10)
+    out = tmp_path / "out"
+    assert train_tum_mono.main([str(seq), "--frame-stride", "1", "--extra-iterations", "2", "--output", str(out),
+                                "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "kf 0/10: loss" in text and "points 0" in text and "wrote" in text
+    ply = out / "point_cloud" / "iteration_12" / "point_cloud.ply"
+    assert ply.exists() and (out / "cameras.json").exists()
+    from gsdf_slam_tpu_torch.io import read_ply
+
+    assert len(read_ply(ply)["x"]) > 1000

@@ -242,3 +242,25 @@ def new_points(model, m=2000, seed=1):
     near = xyz[rng.integers(0, len(xyz), m // 2)] + rng.uniform(-0.005, 0.005, (m // 2, 3))
     far = rng.uniform(xyz.min(0), xyz.max(0), (m - m // 2, 3))
     return np.concatenate([near, far]).astype(np.float32), rng.uniform(0, 1, (m, 3)).astype(np.float32)
+
+
+def write_tum_sequence(seq, rng, n=3, hw=(480, 640)):
+    """A TUM-layout sequence under `seq` (rgb.txt, depth.txt,
+    groundtruth.txt and n random RGB and depth PNGs of `hw`, fr1-style
+    timestamps and poses), written with cv2. Returns `seq`."""
+    import cv2
+
+    (seq / "rgb").mkdir(parents=True)
+    (seq / "depth").mkdir()
+    rgb_lines, depth_lines, gt_lines = [], [], []
+    for i in range(n):
+        ts = 1305031102.175304 + 0.1 * i
+        cv2.imwrite(str(seq / f"rgb/{ts:.6f}.png"), rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+        cv2.imwrite(str(seq / f"depth/{ts:.6f}.png"), rng.integers(0, 20000, hw).astype(np.uint16))
+        rgb_lines.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        depth_lines.append(f"{ts + 0.003:.6f} depth/{ts:.6f}.png")
+        gt_lines.append(f"{ts + 0.004:.6f} {0.01 * i} 0.2 -0.1 0.1 0.2 0.3 0.9")
+    (seq / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_lines) + "\n")
+    (seq / "depth.txt").write_text("# depth\n" + "\n".join(depth_lines) + "\n")
+    (seq / "groundtruth.txt").write_text("# gt\n" + "\n".join(gt_lines) + "\n")
+    return seq
