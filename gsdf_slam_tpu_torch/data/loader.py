@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.colorize import colorize_pointcloud
+from ..utils.observability import span
 from .base_parser import FrameSet, load_depth, load_image_rgb
 from .kitti import KittiParser
 from .pointcloud_io import read_points
@@ -59,14 +60,15 @@ def colorize_frame(
     """A LiDAR frame from arrays: `points` [N, 3] in the LiDAR frame are
     colourised from `image` [H, W, 3] on `device` through P `proj` [3, 4]
     and Tr `tr` [4, 4], moved to the world by `lidar_pose`, and compacted
-    to the valid ones, which come back to the host."""
-    out = colorize_pointcloud(points, image, proj, tr, lidar_pose, device=device)
-    return FrameData(
-        cam_pose=cam_pose,
-        points=out.points_world[out.valid].cpu().numpy(),
-        colors=out.colors[out.valid].cpu().numpy(),
-        image=image,
-    )
+    to the valid ones, which come back to the host. Spans of the current
+    tracer (`utils/observability.py`): "colourise.kernels",
+    "colourise.readback"."""
+    with span("colourise.kernels"):
+        out = colorize_pointcloud(points, image, proj, tr, lidar_pose, device=device)
+    with span("colourise.readback"):
+        pts = out.points_world[out.valid].cpu().numpy()
+        cols = out.colors[out.valid].cpu().numpy()
+    return FrameData(cam_pose=cam_pose, points=pts, colors=cols, image=image)
 
 
 class DataLoader:

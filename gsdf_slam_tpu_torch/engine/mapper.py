@@ -45,7 +45,9 @@ the multi-device `mesh` and live sky segmentation (`skyseg_onnx_path`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import random
@@ -64,7 +66,7 @@ from ..models.optimizer import PARAM_GROUPS, AdamState
 from ..ops.rasterize import RasterizeConfig
 from ..ops.transforms import CameraMatrices
 from ..utils import rotation_angle
-from ..utils.observability import PhaseTimer
+from ..utils.observability import PhaseTimer, using
 from .keyframe import Camera, Keyframe, rot_to_quat_wxyz
 from .scene import Scene
 from .settings import MapperSettings
@@ -81,6 +83,19 @@ _PENDING = object()
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to gsdf_slam_tpu_torch yet (ROADMAP {item})")
+
+
+def _traced(method):
+    """An entry point of the mapper: its `timer` is the current tracer
+    (`utils/observability.py::using`) inside, so deep ops' spans and
+    counters record into it."""
+
+    @functools.wraps(method)
+    def entry(self, *args, **kwargs):
+        with using(self.timer):
+            return method(self, *args, **kwargs)
+
+    return entry
 
 
 class GaussianMapper:
@@ -164,6 +179,7 @@ class GaussianMapper:
         self.timer = PhaseTimer()
 
     # ------------------------------------------------------------------ run
+    @_traced  # the loader's colourise spans, too
     def run(self) -> None:
         """Streaming mapping over the whole dataset (run(), :160-333)."""
         assert self.dataloader is not None, "run() needs a dataloader"
@@ -178,6 +194,7 @@ class GaussianMapper:
         self._stopped = True
 
     # --------------------------------------------------------------- ingest
+    @_traced
     def ingest_frame(self, fid: int, frame: FrameData, intrinsics=None) -> Keyframe:
         """Register camera and keyframe and grow the model from the frame's
         cloud, of which the first `ingest_capacity` points are used.
@@ -260,13 +277,11 @@ class GaussianMapper:
                 _, self.scene.cameras_extent = self.scene.nerfpp_norm()
                 self.spatial_lr_scale = max(self.scene.cameras_extent, 1e-6)
                 n_rest = (self.settings.model.sh_degree + 1) ** 2 - 1
-                self.model = GaussianModel.create_from_pcd(
-                    pts, cols, n_rest=n_rest, device=self.device, timer=self.timer
-                )
+                self.model = GaussianModel.create_from_pcd(pts, cols, n_rest=n_rest, device=self.device)
                 self.adam = AdamState.init(self.model.params())
                 self.initial_mapped = True
             else:
-                increase_pcd(self.model, self.adam, pts, cols, iteration=self.iteration, timer=self.timer)
+                increase_pcd(self.model, self.adam, pts, cols, iteration=self.iteration)
         self._invalidate_binning_caches()
         return kf
 
@@ -286,17 +301,20 @@ class GaussianMapper:
     def _upload_images(self, kf: Keyframe) -> None:
         """The keyframe's training images and masks, every level, to the
         device; the last level (num_gaus_pyramid_sub_levels) is full
-        resolution."""
+        resolution. Timed as "upload.images"."""
         n_levels = self.settings.num_gaus_pyramid_sub_levels
         levels = [(n_levels, kf.image, kf.mask)]
         levels += [
             (lvl, img, kf.pyramid_masks[lvl] if kf.pyramid_masks else None)
             for lvl, img in enumerate(kf.pyramid_images)
         ]
-        for lvl, img, mask in levels:
-            self._images[("gt", kf.fid, lvl)] = torch.as_tensor(img, dtype=torch.float32, device=self.device)
-            if mask is not None:
-                self._images[("mask", kf.fid, lvl)] = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
+        with self.timer.phase("upload.images"):
+            for lvl, img, mask in levels:
+                self._images[("gt", kf.fid, lvl)] = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+                if mask is not None:
+                    self._images[("mask", kf.fid, lvl)] = torch.as_tensor(
+                        mask, dtype=torch.float32, device=self.device
+                    )
 
     def _invalidate_binning_caches(self, fid: int | None = None) -> None:
         """Drop frozen pair permutations: all of them on every live-set
@@ -336,6 +354,7 @@ class GaussianMapper:
     def _raster_cfg(self, h: int, w: int) -> RasterizeConfig:
         return RasterizeConfig(height=h, width=w, sh_degree=self.settings.model.sh_degree)
 
+    @_traced
     def train_for_one_iteration(self) -> dict | None:
         """trainForOneIteration (:335-468) with the cadence on the host:
         sample a keyframe, take one step, run the cadence due at this
@@ -346,9 +365,17 @@ class GaussianMapper:
         resolved step's, up to that many steps old, and a placeholder with
         "pending": True before the first resolve; the in-flight steps are
         resolved before the cadence's surgery and when there is no keyframe
-        to train on (the JAX mapper's contract)."""
+        to train on (the JAX mapper's contract).
+
+        The mapper's first step, with the set-up that later steps do not
+        pay, is timed as "mapper.first_step", around its "train_step"."""
         if not self.initial_mapped:
             return None
+        first = self.iteration == 0
+        with self.timer.phase("mapper.first_step") if first else contextlib.nullcontext():
+            return self._train_one()
+
+    def _train_one(self) -> dict | None:
         res = self._single_step_phase()
         if res is None:
             self.flush_metrics()
@@ -448,15 +475,16 @@ class GaussianMapper:
             )
             metrics, rec["built_cache"] = res if export_cache else (res, None)
             pair = torch.stack([metrics.loss, metrics.psnr])
-            if not pipelined:
-                rec["loss"], rec["psnr"] = pair.tolist()
-            elif pair.is_cuda:
-                rec["host"] = torch.empty(2, dtype=torch.float32, pin_memory=True)
-                rec["host"].copy_(pair, non_blocking=True)
-                rec["event"] = torch.cuda.Event()
-                rec["event"].record()
-            else:
-                rec["host"] = pair
+            with self.timer.phase("step.readback"):
+                if not pipelined:
+                    rec["loss"], rec["psnr"] = pair.tolist()
+                elif pair.is_cuda:
+                    rec["host"] = torch.empty(2, dtype=torch.float32, pin_memory=True)
+                    rec["host"].copy_(pair, non_blocking=True)
+                    rec["event"] = torch.cuda.Event()
+                    rec["event"].record()
+                else:
+                    rec["host"] = pair
         rec["count"], rec["total_pairs"] = metrics.count, int(metrics.total_pairs)
         self.last_binning = binning
         self.binning_counts[binning] += 1
@@ -564,6 +592,7 @@ class GaussianMapper:
         return self._last_resolved
 
     # ------------------------------------------------------- SLAM-mode feed
+    @_traced
     def feed_keyframe(
         self,
         fid: int,
@@ -747,7 +776,7 @@ class GaussianMapper:
             for i in range(0, len(points), self.ingest_capacity):
                 increase_pcd(
                     self.model, self.adam, points[i : i + self.ingest_capacity],
-                    colors[i : i + self.ingest_capacity], iteration=self.iteration, timer=self.timer,
+                    colors[i : i + self.ingest_capacity], iteration=self.iteration,
                 )
         self._invalidate_binning_caches()
 

@@ -23,6 +23,7 @@ from ..ops.losses import mapper_loss, psnr
 from ..ops.rasterize import RasterizeConfig, RenderOutput, render
 from ..ops.tile_blend import BinningCache
 from ..ops.transforms import CameraMatrices
+from ..utils.observability import span
 
 
 class StepMetrics(NamedTuple):
@@ -111,7 +112,11 @@ def train_step(
     of this step's binning), for `binning_cache=` on later steps of the same
     view; the cache is valid only for this model's Gaussians (its count
     and generation: any surgery starts a new one) and this image size, and
-    a mismatch raises."""
+    a mismatch raises.
+
+    Spans of the current tracer (`utils/observability.py`), beside the
+    render's: "step.loss", "step.backward" (the autograd backward: K2, the
+    preprocess's backward), "step.stats", "step.adam"."""
     params = model.params()
     # zero screen-space offset whose gradient feeds densification (JAX :180-183)
     m2d0 = torch.zeros((model.count, 2), device=model.xyz.device, requires_grad=True)
@@ -119,16 +124,20 @@ def train_step(
         model, cam, bg, cfg, means2d_offset=m2d0, active_sh_degree=active_sh_degree,
         binning_cache=binning_cache, export_binning_cache=export_binning_cache,
     )
-    loss = mapper_loss(out.image, gt_image, mask, opt.lambda_dssim)
-    grads = torch.autograd.grad(loss, [params[k] for k in PARAM_GROUPS] + [m2d0])
+    with span("step.loss"):
+        loss = mapper_loss(out.image, gt_image, mask, opt.lambda_dssim)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, [params[k] for k in PARAM_GROUPS] + [m2d0])
     g_params = dict(zip(PARAM_GROUPS, grads[:-1]))
 
     if accumulate_stats:
-        model.add_densification_stats(grads[-1], out.radii, cfg.width, cfg.height)
+        with span("step.stats"):
+            model.add_densification_stats(grads[-1], out.radii, cfg.width, cfg.height)
 
-    lrs = group_lrs(opt, 1.0, iteration, device=model.xyz.device)
-    lrs["xyz"] = lrs["xyz"] * spatial_lr_scale
-    adam_step({k: p.data for k, p in params.items()}, g_params, adam, lrs)
+    with span("step.adam"):
+        lrs = group_lrs(opt, 1.0, iteration, device=model.xyz.device)
+        lrs["xyz"] = lrs["xyz"] * spatial_lr_scale
+        adam_step({k: p.data for k, p in params.items()}, g_params, adam, lrs)
     with torch.no_grad():
         metrics = StepMetrics(
             loss=loss.detach(), psnr=psnr(out.image, gt_image), count=model.count,

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from .utils.observability import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # blend_probe.cu holds blend_probe_fwd (six modes), the two other blend
@@ -152,14 +154,16 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use). Raises without nvcc."""
+    """The loaded kernel library (built on first use; the load or build is
+    the current tracer's span "kernels.library"). Raises without nvcc."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with span("kernels.library"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -35,7 +35,6 @@ Parity notes (gaussian_model.cpp):
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +44,7 @@ from torch import nn
 from ..ops.knn import knn_mean_dist2_exact
 from ..ops.sh import rgb_to_sh
 from ..ops.transforms import inverse_sigmoid, quat_to_rotmat
+from ..utils.observability import span
 from .optimizer import PARAM_GROUPS, AdamState
 
 VOXEL_SIZE = 0.05  # gaussian_model.cpp:135
@@ -97,18 +97,16 @@ class GaussianModel(nn.Module):
         valid: np.ndarray | None = None,
         n_rest: int = 15,
         device: torch.device | str = "cuda",
-        timer=None,
     ) -> "GaussianModel":
         """createFromPcd (:130-199) from the first colourised cloud; no
-        voxel dedup (the reference discards its result). A `timer`
-        (`utils/observability.py::PhaseTimer`) times the k-NN as
-        "ingest.knn"."""
+        voxel dedup (the reference discards its result). The k-NN is the
+        span "ingest.knn" of the current tracer."""
         points = np.asarray(points, np.float32)
         colors = np.asarray(colors, np.float32)
         if valid is not None:
             keep = np.asarray(valid, bool)
             points, colors = points[keep], colors[keep]
-        params, _ = _new_point_params(points, colors, 0, n_rest, device, timer)
+        params, _ = _new_point_params(points, colors, 0, n_rest, device)
         return GaussianModel(params)
 
     @torch.no_grad()
@@ -127,15 +125,15 @@ class GaussianModel(nn.Module):
         )
 
 
-def _new_point_params(points: np.ndarray, colors: np.ndarray, iteration: int, n_rest: int, device, timer=None):
+def _new_point_params(points: np.ndarray, colors: np.ndarray, iteration: int, n_rest: int, device):
     """The shared init of createFromPcd and increasePcd (:150-196, 248-297)
     for host point and colour arrays [N, 3]: SH DC from RGB, zero rest,
     scales from the exact 3-NN among these points only, identity rotation,
     opacity 0.1. Returns the parameters and exist_since_iter, all on
-    `device`; `timer`, if given, times the k-NN as "ingest.knn"."""
+    `device`; the k-NN is the current tracer's span "ingest.knn"."""
     n = points.shape[0]
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    with timer.phase("ingest.knn") if timer is not None else contextlib.nullcontext():
+    with span("ingest.knn"):
         knn = knn_mean_dist2_exact(points)
     dist2 = torch.clamp_min(f32(knn), 1e-7)
     rot = torch.zeros((n, 4), device=device)
@@ -296,24 +294,25 @@ def increase_pcd(
     colors,
     valid=None,
     iteration: int = 0,
-    timer=None,
 ) -> int:
     """increasePcd (:207-317), in place: the new points whose voxel hash no
     live Gaussian has are appended with a fresh init (3-NN scales among the
     kept points only), exist_since_iter = `iteration`. The new rows go to
     the model's device. Points [M, 3] and colours [M, 3] in [0, 1] are host
     arrays or tensors. Returns the number of points kept; reads the keep
-    mask back to the host once, for the k-NN, which `timer` (a
-    `PhaseTimer`), if given, times as "ingest.knn"."""
+    mask back to the host once, for the k-NN. Spans of the current
+    tracer: "dedup.voxel" (the hashes and the keep mask's read-back),
+    "ingest.knn"."""
     dev = model.xyz.device
     pts = _host(points).astype(np.float32)
     cols = _host(colors).astype(np.float32)
-    pts_d = torch.as_tensor(pts, device=dev)
-    keep = ~torch.isin(voxel_hash(pts_d), voxel_hash(model.xyz.detach()))
-    if valid is not None:
-        keep &= torch.as_tensor(_host(valid).astype(bool), device=dev)
-    keep_h = keep.cpu().numpy()
-    params, exist = _new_point_params(pts[keep_h], cols[keep_h], iteration, model.f_rest.shape[1], dev, timer)
+    with span("dedup.voxel"):
+        pts_d = torch.as_tensor(pts, device=dev)
+        keep = ~torch.isin(voxel_hash(pts_d), voxel_hash(model.xyz.detach()))
+        if valid is not None:
+            keep &= torch.as_tensor(_host(valid).astype(bool), device=dev)
+        keep_h = keep.cpu().numpy()
+    params, exist = _new_point_params(pts[keep_h], cols[keep_h], iteration, model.f_rest.shape[1], dev)
     _append(model, adam, params, exist)
     return int(keep_h.sum())
 

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.observability import span
 from .blend import ALPHA_MAX, ALPHA_MIN, T_EPS, assemble_image
 from .projection import TILE, Preprocessed, preprocess, tile_grid
 from .tile_blend import BinningCache, blend_tiles_cached, blend_tiles_export, blend_tiles_fresh
@@ -95,24 +96,27 @@ def render_preprocessed(
     """Binning + blend + composite on a preprocessed payload; or the blend
     through `binning_cache`; or, with `export_binning_cache`, a fresh render
     that also returns its (pruned) cache, stamped with `generation` (the
-    model's surgery count)."""
+    model's surgery count). The span "render.blend" of the current tracer
+    holds the binning ("render.binning"), the blend and the composite."""
     gw, gh = cfg.grid
     cache_out = None
     if binning_cache is not None:
         if export_binning_cache:
             raise ValueError("binning_cache and export_binning_cache exclude each other")
         _check_cache(binning_cache, pre.means2d.shape[0], generation, cfg)
-        accum, log_t_eff, total = blend_tiles_cached(pre, opacities, binning_cache, grid_w=gw, grid_h=gh)
-    elif export_binning_cache:
-        accum, log_t_eff, total, cache_out = blend_tiles_export(
-            pre, opacities, grid_w=gw, grid_h=gh, margin=cfg.cache_prune_margin,
-            image_size=(cfg.height, cfg.width), generation=generation,
+    with span("render.blend"):
+        if binning_cache is not None:
+            accum, log_t_eff, total = blend_tiles_cached(pre, opacities, binning_cache, grid_w=gw, grid_h=gh)
+        elif export_binning_cache:
+            accum, log_t_eff, total, cache_out = blend_tiles_export(
+                pre, opacities, grid_w=gw, grid_h=gh, margin=cfg.cache_prune_margin,
+                image_size=(cfg.height, cfg.width), generation=generation,
+            )
+        else:
+            accum, log_t_eff, total = blend_tiles_fresh(pre, opacities, grid_w=gw, grid_h=gh)
+        image, final_t = assemble_image(
+            accum, log_t_eff, bg, grid_w=gw, grid_h=gh, width=cfg.width, height=cfg.height
         )
-    else:
-        accum, log_t_eff, total = blend_tiles_fresh(pre, opacities, grid_w=gw, grid_h=gh)
-    image, final_t = assemble_image(
-        accum, log_t_eff, bg, grid_w=gw, grid_h=gh, width=cfg.width, height=cfg.height
-    )
     return RenderOutput(
         image=image, final_t=final_t, radii=pre.radii, total_pairs=total, binning_cache=cache_out
     )
@@ -143,13 +147,15 @@ def render(
     `cfg.cache_prune_margin` is 0; `binning_cache=` renders through such a
     cache with no binning. A cache is valid only for the model (count and
     `generation`) and image size it was built from; anything else raises.
-    `colors_precomp` [P, 3] replaces the SH colours, unclamped."""
-    pre = preprocess(
-        means3d, scales, quats, opacities, dc, sh_rest, cam,
-        width=cfg.width, height=cfg.height, sh_degree=cfg.sh_degree,
-        scale_modifier=cfg.scale_modifier, means2d_offset=means2d_offset,
-        active_sh_degree=active_sh_degree, colors_precomp=colors_precomp,
-    )
+    `colors_precomp` [P, 3] replaces the SH colours, unclamped. Spans of
+    the current tracer: "render.preprocess", "render.blend"."""
+    with span("render.preprocess"):
+        pre = preprocess(
+            means3d, scales, quats, opacities, dc, sh_rest, cam,
+            width=cfg.width, height=cfg.height, sh_degree=cfg.sh_degree,
+            scale_modifier=cfg.scale_modifier, means2d_offset=means2d_offset,
+            active_sh_degree=active_sh_degree, colors_precomp=colors_precomp,
+        )
     return render_preprocessed(
         pre, opacities, bg, cfg, binning_cache=binning_cache,
         export_binning_cache=export_binning_cache, generation=generation,

@@ -17,6 +17,11 @@ JAX.
 
 On a CPU tensor each wrapper takes its plain version (ops/blend.py); on a
 CUDA tensor it launches its kernel or raises.
+
+Each blend adds the pairs it walks (the binning's or the cache's pair
+count, known to the host) to the current tracer's counter "blend.pairs";
+the binning and the cache's compaction are its span "render.binning"
+(`utils/observability.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils.observability import count, span
 from .binning import PAYLOAD_ROWS, Binned, bin_and_pack, payload_table
 from .blend import PIX_PER_TILE, blend_bwd_plain, blend_fwd_plain, checkpoint_slots, keep_log_exit
 
@@ -186,10 +192,12 @@ class FreshBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, means2d, conics, opacities, colors, depths, rect_min,
                 rect_max, tiles_touched, grid_w, grid_h, export_margin):
-        binned = bin_and_pack(
-            depths, rect_min, rect_max, tiles_touched, means2d, conics,
-            opacities, colors, grid_w=grid_w, grid_h=grid_h,
-        )
+        with span("render.binning"):
+            binned = bin_and_pack(
+                depths, rect_min, rect_max, tiles_touched, means2d, conics,
+                opacities, colors, grid_w=grid_w, grid_h=grid_h,
+            )
+        count("blend.pairs", binned.gid.shape[0])
         keep = None
         if export_margin:
             accum, log_t_eff, n_contrib, ckpt, keep = blend_fwd_export(
@@ -237,9 +245,10 @@ def blend_tiles_export(pre, opacities, *, grid_w: int, grid_h: int, margin: floa
     accum, log_t_eff, total, binned, keep = FreshBlend.apply(
         *_fresh_args(pre, opacities), grid_w, grid_h, float(margin)
     )
-    cache = build_pruned_cache(
-        binned, keep, num_gaussians=pre.means2d.shape[0], image_size=image_size, generation=generation,
-    )
+    with span("render.binning"):
+        cache = build_pruned_cache(
+            binned, keep, num_gaussians=pre.means2d.shape[0], image_size=image_size, generation=generation,
+        )
     return accum, log_t_eff, total, cache
 
 
@@ -284,6 +293,7 @@ def blend_tiles_cached(pre, opacities, cache: BinningCache, *, grid_w: int, grid
     """Cached blend of a Preprocessed payload (`blend_tiles_grouped_cached`):
     (accum [T,256,3], log_t_eff [T,256], the cache's total_pairs 0-d int64).
     Rects and depths of `pre` are unused."""
+    count("blend.pairs", cache.gid.shape[0])
     accum, log_t_eff = CachedBlend.apply(
         pre.means2d, pre.conics, opacities, pre.colors, pre.tiles_touched > 0,
         cache.ranges, cache.gid, grid_w, grid_h,

@@ -403,7 +403,11 @@ def test_stream_entry_point_on_the_cpu(capsys):
     assert stream.main(["--frames", "4", "--res", "48x32", "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["frames"] == 4 and line["iterations"] == 13 and line["gaussians"] > 0
-    assert set(line["phases_ms"]) == {"ingest.backproject", "ingest.knn", "ingest.increase_pcd", "train_step"}
+    assert set(line["phases_ms"]) == {
+        "ingest.backproject", "ingest.knn", "ingest.increase_pcd", "train_step", "dedup.voxel", "upload.images",
+        "mapper.first_step", "render.preprocess", "render.blend", "render.binning", "step.loss", "step.backward",
+        "step.stats", "step.adam", "step.readback",
+    }
     assert line["phases_ms"]["ingest.knn"]["calls"] == 4 and line["binning"] == {"fresh": 13}
     _, steps = stream.run_stream(4, 48, 32, "cpu", rebin_interval=4)
     assert [s["binning"] for s in steps].count("cached") > 0
