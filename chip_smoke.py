@@ -35,6 +35,11 @@ Phases, each printing its own lines:
    torch.cuda.set_sync_debug_mode("warn") to count host syncs;
 5. kernel times: each kernel and its plain version at the headline shapes,
    K4's walk to its relaxed exit counted beside K1's, and K4/K1 in turns;
+5b. the preprocess kernels (preprocess_fwd, preprocess_bwd) at the cells'
+   map sizes (0.63M and 2.0M Gaussians at KITTI's 1226x370, SH 3):
+   checked against the plain version and its autograd VJP
+   (probes/checks.py::preprocess_check), then each kernel's time beside
+   the plain version's and its bound on bytes, in turns;
 6. probes: each probe kernel (blend_probe_fwd in its six modes,
    blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
    version on the 64x64 scene and on the opaque wall (32x32, where the
@@ -192,6 +197,10 @@ KERNELS = {
         source="gsdf_slam_tpu_torch/csrc/pair_table.cu",
         replaces="benchmarks/microbench.py:804",
     ),
+    # phase 5b: no Pallas kernel; the JAX package leaves the preprocess to
+    # XLA's fusion
+    "preprocess_fwd": dict(source="gsdf_slam_tpu_torch/csrc/preprocess.cu", replaces="none"),
+    "preprocess_bwd": dict(source="gsdf_slam_tpu_torch/csrc/preprocess.cu", replaces="none"),
 }
 PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
 PAIR_TABLE = ("realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum")
@@ -640,8 +649,8 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     # the host's speed drifts within a call: each cadence is read against
     # the fresh run next to it
     turn_median = []
-    want = {**dict.fromkeys(kernels.LAUNCHES, 0),
-            "blend_fwd_export": 1, "tile_ranges_pack": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n}
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), "blend_fwd_export": 1, "tile_ranges_pack": 1,
+            "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
         m, a = copy_state(model, adam)
         if kind == "fresh":
@@ -701,6 +710,63 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
         count, where = count_syncs(torch, lambda: fn(2000))
         log(f"[cadence] host syncs torch reports in one {kind} step: {count} at {where}")
     return first_launches or {}, failed
+
+
+def drive_preprocess(torch, device, launches, time_entry) -> list[str]:
+    """Phase 5b: preprocess_fwd and preprocess_bwd at each of the cells' map
+    sizes, checked against the plain version and its autograd VJP, then
+    timed beside them (time_entry) with the bound on the bytes each must
+    move. Returns the failed checks."""
+    from gsdf_slam_tpu_torch.ops import projection
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.scene import (
+        KITTI_HEIGHT, KITTI_WIDTH, PREPROCESS_SIZES, headline_scene, kitti_camera, preprocess_args,
+    )
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms
+
+    failed = []
+    cam = kitti_camera(device)
+    w, h = KITTI_WIDTH, KITTI_HEIGHT
+    st = projection.PreprocessSettings(w, h, 3, 1.0, None)
+    for tag, p in PREPROCESS_SIZES.items():
+        args = preprocess_args(headline_scene(device, n=p))
+        means3d, scales, quats, opac, dc, rest = args
+        res = checks.preprocess_check(args, cam, st)
+        log(f"[preprocess] {tag}: {p} Gaussians at {w}x{h}: {json.dumps(res)}")
+        if not res["ok"]:
+            failed.append(f"preprocess@{tag}")
+        # bytes at SH degree 3 (16 coefficients of 3 floats): the forward
+        # reads means, scales, quaternion, opacity and the coefficients and
+        # writes 60 bytes of fields; the backward reads the same but the
+        # opacity, the 8 floats of cotangent, and writes the gradients of
+        # means, scales, quaternion and coefficients
+        coeffs = 16 * 3 * 4
+        fwd_bytes = p * (12 + 12 + 16 + 4 + coeffs + 60)
+        bwd_bytes = p * (12 + 12 + 16 + coeffs + 32 + 12 + 12 + 16 + coeffs)
+        pre = projection.preprocess_plain(*args, cam, width=w, height=h, sh_degree=3)
+        cts = checks.preprocess_cotangents(pre)
+        leaves = [t.clone().requires_grad_(True) for t in (means3d, scales, quats, dc, rest)]
+        with torch.enable_grad():
+            g_pre = projection.preprocess_plain(leaves[0], leaves[1], leaves[2], opac, leaves[3], leaves[4], cam,
+                                                width=w, height=h, sh_degree=3)
+        outs = [g_pre.means2d, g_pre.conics, g_pre.colors]
+        outs_cts = [cts[0], cts[2], cts[3]]
+
+        def plain_fwd():
+            with torch.no_grad():
+                projection.preprocess_plain(*args, cam, width=w, height=h, sh_degree=3)
+
+        shapes = f"{p} Gaussians, SH 3, {w}x{h}"
+        grad_err = max(e for errs in res["grads"].values() for e in errs.values())
+        time_entry("preprocess_fwd", lambda: projection.preprocess_fwd(*args, cam, st), plain_fwd, shapes,
+                   launches["preprocess_fwd"], res["colors"], bound_ms(fwd_bytes))
+        time_entry("preprocess_bwd",
+                   lambda: projection.preprocess_bwd(means3d, scales, quats, dc, rest, cam, st, *cts),
+                   lambda: torch.autograd.grad(outs, leaves, outs_cts, retain_graph=True), shapes,
+                   launches["preprocess_bwd"], grad_err, bound_ms(bwd_bytes))
+        del args, means3d, scales, quats, opac, dc, rest, pre, cts, leaves, g_pre, outs, outs_cts
+        torch.cuda.empty_cache()
+    return failed
 
 
 def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
@@ -1092,7 +1158,8 @@ def drive_streaming(torch, device, smi):
 
     t_phase = time.perf_counter()
     failed = []
-    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export")
+    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
+                    "preprocess_bwd")
     proj, tr = kitti_calibration(KITTI_W, KITTI_H)
 
     def frame_inputs(i):
@@ -1180,7 +1247,9 @@ def drive_streaming(torch, device, smi):
     if (launches["tile_ranges_pack"] != steps["fresh"] + steps["export"]
             or launches["blend_fwd_export"] != steps["export"]
             or launches["blend_fwd"] != steps["fresh"] + steps["cached"]
-            or launches["blend_bwd"] != len(streamed + polish)):
+            or launches["blend_bwd"] != len(streamed + polish)
+            or launches["preprocess_fwd"] != len(streamed + polish)
+            or launches["preprocess_bwd"] != len(streamed + polish)):
         failed.append("stream:kitti-launches-disagree-with-the-binning")
     failed += [f"stream:kitti-{k}-not-launched" for k in path_kernels if launches[k] == 0]
     del mapper
@@ -1237,7 +1306,8 @@ def drive_mono(torch, device, smi):
 
     t_phase = time.perf_counter()
     failed = []
-    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export")
+    path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
+                    "preprocess_bwd")
     settings = mono.mono_settings()
     intr = mono.room_intrinsics(ROOM_W, ROOM_H)
 
@@ -1320,7 +1390,8 @@ def drive_mono(torch, device, smi):
         failed.append("mono:large-correction-left-young-gaussians")
     n_bin = mapper.binning_counts
     if (launches["blend_bwd"] != steps or launches["tile_ranges_pack"] != n_bin["fresh"] + renders
-            or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0):
+            or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0
+            or launches["preprocess_bwd"] != steps):
         failed.append("mono:launches-disagree-with-the-steps-and-renders")
     failed += [f"mono:{k}-not-launched" for k in path_kernels[:3] if launches[k] == 0]
 
@@ -1557,7 +1628,7 @@ def main() -> int:
         failed.append("main:loss-not-finite")
     if model.count != n0:
         failed.append("main:count-changed")
-    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd"):
+    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd"):
         if launches[name] < WARMUP + TIMED:
             failed.append(f"main:{name}-launched-{launches[name]}")
     if launches["blend_fwd_export"] != 0:
@@ -1664,8 +1735,9 @@ def main() -> int:
         log(f"[time] {name}: kernel {ms:.4f} ms graph (runs {k0:.4f}, {k1:.4f}), bound {bound[0]:.4f} ms "
             f"({bound[2]}; {bound[0] / ms:.3f} of it), {lib}, plain {plain_ms:.4f} ms (runs {p0:.4f}, "
             f"{p1:.4f}) at {shapes} on {smi}")
-        entries.append(dict(name=name, route="cuda", **KERNELS[name], launches=count, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms))
+        entries.append(dict(name=name, route="cuda", **KERNELS[name], shapes=shapes, launches=count,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=lib_ms))
 
     for name, (kern, plain) in timings.items():
         time_entry(name, kern, plain, f"{pairs_live} pairs, {num_tiles} tiles", launches[name], head_err[name],
@@ -1676,6 +1748,9 @@ def main() -> int:
     log(f"[time] K4/K1 in turns (K1, K4, K4, K1: {', '.join(f'{v:.4f}' for v in turns)} ms graph): "
         f"{k4_over_k1:.4f}, against the walk ratio {walk_ratio:.4f} in warp-steps "
         f"({walked4 / walked1:.4f} in pixel-pairs) on {smi}")
+
+    # ---- 5b. the preprocess kernels at the cells' map sizes
+    failed += drive_preprocess(torch, device, launches, time_entry)
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;

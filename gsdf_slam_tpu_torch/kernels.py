@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # blend_probe.cu holds blend_probe_fwd (six modes), the two other blend
 # probes a file each; the four pair-table kernels share pair_table.cu
 SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
-           "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu")
+           "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu", "preprocess.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -44,11 +44,13 @@ LAUNCHES = {
     "tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0,
     "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
     "realign_copy": 0, "window_gather_rows": 0, "window_gather_cols": 0, "xpose_cumsum": 0,
+    "preprocess_fwd": 0, "preprocess_bwd": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # keys, order, pair_gid, table, M, ranges, gid_out, payload, stream
     "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
@@ -57,7 +59,7 @@ _SIGNATURES = {
     "gsdf_blend_fwd": (_P, _P, _L, _I, _I, _P, _P, _P, _P, _P),
     # ranges, payload, M, num_tiles, grid_w, log_exit, accum, log_t_eff,
     # n_contrib, ckpt, keep, stream
-    "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P),
+    "gsdf_blend_fwd_export": (_P, _P, _L, _I, _I, _F, _P, _P, _P, _P, _P, _P),
     # mismatches, stream: K4's live-range log1p against log1pf (a check,
     # not a kernel of the port)
     "gsdf_log1p_live_mismatches": (_P, _P),
@@ -82,6 +84,19 @@ _SIGNATURES = {
     "gsdf_window_gather_cols": (_P, _P, _L, _P, _L, _I, _I, _P, _P),
     # x, MP, scratch, scratch words, out, stream
     "gsdf_xpose_cumsum": (_P, _L, _P, _L, _P, _P),
+    # means3d, scales, quats, opacities, dc, sh_rest, n_rest, offset,
+    # colors_precomp and its two strides, view, full_proj, campos, tanfovx,
+    # tanfovy, P, width, height, grid_w, grid_h, n_coeffs, scale_modifier;
+    # means2d, depths, conics, colors, radii, rect_min, rect_max,
+    # tiles_touched, stream
+    "gsdf_preprocess_fwd": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                            _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # means3d, scales, quats, dc, sh_rest, n_rest, view, full_proj, campos,
+    # tanfovx, tanfovy, P, width, height, n_coeffs, scale_modifier; the
+    # cotangents of means2d, depths, conics and colors, each with its
+    # strides; the gradients of means3d, scales, quats, dc, sh_rest, stream
+    "gsdf_preprocess_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _L, _L, _P, _L,
+                            _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -179,16 +194,18 @@ def runs_plain(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
-    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`
-    (a -1 in `shape` matches any size)."""
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device,
+          contiguous: bool = True) -> None:
+    """Raise unless `t` is a `dtype` tensor of `shape` on `device` (a -1 in
+    `shape` matches any size), contiguous unless the kernel reads it
+    through its strides (`contiguous=False`)."""
     if t.device != device:
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(s != -1 and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

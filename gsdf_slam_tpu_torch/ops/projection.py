@@ -16,6 +16,14 @@ The numeric conventions are the JAX package's:
 
 The tensors are sized to the live Gaussians; there is no capacity padding
 and no liveness mask.
+
+`preprocess` is one `torch.autograd.Function`, `Preprocess`: on a CUDA
+tensor its forward and backward are the kernels `preprocess_fwd` and
+`preprocess_bwd` (csrc/preprocess.cu, one launch each), which raise where
+they cannot run; on a CPU tensor the forward is `preprocess_plain`, the
+plain tensor ops, and the backward is the autograd VJP of that plain
+forward, recomputed. The kernels replace no Pallas kernel: the JAX package
+leaves the preprocess to XLA's fusion.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from .sh import eval_sh_color
 from .transforms import CameraMatrices, build_cov3d, ndc_to_pix
 
@@ -98,7 +107,7 @@ def compute_cov2d(
     return torch.stack([cxx, cxy, cyy], dim=-1)
 
 
-def preprocess(
+def preprocess_plain(
     means3d: torch.Tensor,
     scales: torch.Tensor,
     quats: torch.Tensor,
@@ -115,7 +124,8 @@ def preprocess(
     active_sh_degree: int | None = None,
     colors_precomp: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """Preprocess every Gaussian of the map.
+    """`preprocess` as plain tensor ops, autograd supplying the backward: the
+    CPU route of `Preprocess` and the version its kernels are held to.
 
     `means2d_offset` is an all-zeros [P, 2] tensor added to the projected
     pixel means; its gradient is the screen-space positional gradient that
@@ -208,3 +218,218 @@ def preprocess(
         rect_max=rmax,
         tiles_touched=tiles_touched,
     )
+
+
+class PreprocessSettings(NamedTuple):
+    """The static arguments of a preprocess."""
+
+    width: int
+    height: int
+    sh_degree: int
+    scale_modifier: float
+    active_sh_degree: int | None
+
+    def n_coeffs(self, n_rest: int) -> int:
+        """SH coefficients summed, as eval_sh_color: the degree's, cut to the
+        active degree's and to the coefficients there are."""
+        k = (self.sh_degree + 1) ** 2
+        if self.active_sh_degree is not None and self.active_sh_degree < self.sh_degree:
+            k = (self.active_sh_degree + 1) ** 2
+        return min(k, 1 + n_rest)
+
+
+def _camera_ptrs(cam: CameraMatrices) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for t in (cam.view, cam.full_proj, cam.campos, cam.tanfovx, cam.tanfovy))
+
+
+def _check_inputs(means3d, scales, quats, dc, sh_rest, cam: CameraMatrices, st: PreprocessSettings) -> None:
+    """Raise unless the kernels can take these inputs: float32, contiguous,
+    on means3d's device, of the preprocess's shapes, SH degree <= 3."""
+    dev = means3d.device
+    p = means3d.shape[0]
+    for name, t, shape in (("means3d", means3d, (p, 3)), ("scales", scales, (p, 3)), ("quats", quats, (p, 4)),
+                           ("dc", dc, (p, 1, 3)), ("sh_rest", sh_rest, (p, -1, 3)),
+                           ("view", cam.view, (4, 4)), ("full_proj", cam.full_proj, (4, 4)),
+                           ("campos", cam.campos, (3,)), ("tanfovx", cam.tanfovx, ()),
+                           ("tanfovy", cam.tanfovy, ())):
+        kernels.check(name, t, torch.float32, shape, dev)
+    if not 0 <= st.sh_degree <= 3:
+        raise ValueError(f"preprocess kernels: SH degree must be in [0, 3], got {st.sh_degree}")
+
+
+def _ptr(t) -> int | None:
+    return t.data_ptr() if t is not None else None
+
+
+def _strides(t, n: int = 2) -> tuple[int, ...]:
+    return tuple(t.stride()) if t is not None else (0,) * n
+
+
+def preprocess_fwd(means3d, scales, quats, opacities, dc, sh_rest, cam: CameraMatrices, st: PreprocessSettings,
+                   means2d_offset=None, colors_precomp=None) -> Preprocessed:
+    """Kernel `preprocess_fwd`: every field of `Preprocessed` in one launch,
+    bit-equal to `preprocess_plain` on the card but for the colours' last
+    bits (the SH sum's order). Reads the camera through device pointers; a
+    CUDA tensor only (no plain fallback)."""
+    _check_inputs(means3d, scales, quats, dc, sh_rest, cam, st)
+    dev = means3d.device
+    p = means3d.shape[0]
+    kernels.check("opacities", opacities, torch.float32, (p,), dev)
+    if means2d_offset is not None:
+        kernels.check("means2d_offset", means2d_offset, torch.float32, (p, 2), dev)
+    if colors_precomp is not None:
+        kernels.check("colors_precomp", colors_precomp, torch.float32, (p, 3), dev, contiguous=False)
+    kernels.library()  # builds on first use; raises where it cannot
+    gw, gh = tile_grid(st.width, st.height)
+    f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    i = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
+    out = Preprocessed(means2d=f(p, 2), depths=f(p), conics=f(p, 3), colors=f(p, 3), radii=i(p),
+                       rect_min=i(p, 2), rect_max=i(p, 2), tiles_touched=i(p))
+    kernels.LAUNCHES["preprocess_fwd"] += 1
+    kernels.launch(
+        "gsdf_preprocess_fwd", means3d.data_ptr(), scales.data_ptr(), quats.data_ptr(), opacities.data_ptr(),
+        dc.data_ptr(), sh_rest.data_ptr(), sh_rest.shape[1], _ptr(means2d_offset), _ptr(colors_precomp),
+        *_strides(colors_precomp), *_camera_ptrs(cam), p, st.width, st.height, gw, gh,
+        st.n_coeffs(sh_rest.shape[1]), st.scale_modifier, *(t.data_ptr() for t in out),
+    )
+    return out
+
+
+def preprocess_bwd(means3d, scales, quats, dc, sh_rest, cam: CameraMatrices, st: PreprocessSettings, ct_means2d,
+                   ct_depths, ct_conics, ct_colors, sh: bool = True):
+    """Kernel `preprocess_bwd`: the gradients of means3d, scales, quats and,
+    with `sh`, of dc and sh_rest (zeros above the active degree) from the
+    cotangents of means2d [P, 2], depths [P], conics [P, 3] and colours
+    [P, 3], each read through its strides (None reads as zeros). The
+    forward's intermediates are recomputed from the inputs. A CUDA tensor
+    only (no plain fallback)."""
+    _check_inputs(means3d, scales, quats, dc, sh_rest, cam, st)
+    p = means3d.shape[0]
+    for name, t, shape in (("ct_means2d", ct_means2d, (p, 2)), ("ct_depths", ct_depths, (p,)),
+                           ("ct_conics", ct_conics, (p, 3)), ("ct_colors", ct_colors, (p, 3))):
+        if t is not None:
+            kernels.check(name, t, torch.float32, shape, means3d.device, contiguous=False)
+    kernels.library()  # builds on first use; raises where it cannot
+    g_means, g_scales, g_quats = torch.empty_like(means3d), torch.empty_like(scales), torch.empty_like(quats)
+    g_dc, g_rest = (torch.empty_like(dc), torch.empty_like(sh_rest)) if sh else (None, None)
+    kernels.LAUNCHES["preprocess_bwd"] += 1
+    kernels.launch(
+        "gsdf_preprocess_bwd", means3d.data_ptr(), scales.data_ptr(), quats.data_ptr(), dc.data_ptr(),
+        sh_rest.data_ptr(), sh_rest.shape[1], *_camera_ptrs(cam), p, st.width, st.height,
+        st.n_coeffs(sh_rest.shape[1]), st.scale_modifier, _ptr(ct_means2d), *_strides(ct_means2d),
+        _ptr(ct_depths), *_strides(ct_depths, 1), _ptr(ct_conics), *_strides(ct_conics), _ptr(ct_colors),
+        *_strides(ct_colors), g_means.data_ptr(), g_scales.data_ptr(), g_quats.data_ptr(), _ptr(g_dc), _ptr(g_rest),
+    )
+    return g_means, g_scales, g_quats, g_dc, g_rest
+
+
+def _plain(inputs, cam: CameraMatrices, st: PreprocessSettings) -> Preprocessed:
+    means3d, scales, quats, opacities, dc, sh_rest, means2d_offset, colors_precomp = inputs
+    return preprocess_plain(
+        means3d, scales, quats, opacities, dc, sh_rest, cam, width=st.width, height=st.height,
+        sh_degree=st.sh_degree, scale_modifier=st.scale_modifier, means2d_offset=means2d_offset,
+        active_sh_degree=st.active_sh_degree, colors_precomp=colors_precomp,
+    )
+
+
+# the differentiable inputs of Preprocess, in its argument order, and the
+# outputs with a cotangent
+_N_INPUTS = 8
+_N_FLOAT_OUTPUTS = 4  # means2d, depths, conics, colors
+
+
+class Preprocess(torch.autograd.Function):
+    """The preprocess of `preprocess`. Inputs: means3d, scales, quats,
+    opacities, dc, sh_rest, means2d_offset (or None), colors_precomp (or
+    None), the five camera tensors and the `PreprocessSettings`; outputs: the
+    `Preprocessed` fields. Gradients reach means3d, scales, quats, dc,
+    sh_rest, means2d_offset and colors_precomp; opacities get none (they
+    reach only the integer rects), as in the plain version. The backward
+    saves only the inputs."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, quats, opacities, dc, sh_rest, means2d_offset, colors_precomp,
+                view, full_proj, campos, tanfovx, tanfovy, st):
+        cam = CameraMatrices(view, full_proj, campos, tanfovx, tanfovy)
+        inputs = (means3d, scales, quats, opacities, dc, sh_rest, means2d_offset, colors_precomp)
+        if kernels.runs_plain(means3d):
+            out = _plain(inputs, cam, st)
+        else:
+            out = preprocess_fwd(means3d, scales, quats, opacities, dc, sh_rest, cam, st,
+                                 means2d_offset=means2d_offset, colors_precomp=colors_precomp)
+        ctx.save_for_backward(*inputs, view, full_proj, campos, tanfovx, tanfovy)
+        ctx.st = st
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(out.radii, out.rect_min, out.rect_max, out.tiles_touched)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        saved = ctx.saved_tensors
+        inputs, cam = saved[:_N_INPUTS], CameraMatrices(*saved[_N_INPUTS:])
+        cts = cts[:_N_FLOAT_OUTPUTS]
+        want = ctx.needs_input_grad[:_N_INPUTS]
+        if kernels.runs_plain(inputs[0]):
+            grads = _plain_vjp(inputs, cam, ctx.st, cts, want)
+        else:
+            grads = _kernel_vjp(inputs, cam, ctx.st, cts)
+        return (*(g if w else None for g, w in zip(grads, want)), None, None, None, None, None, None)
+
+
+def _plain_vjp(inputs, cam, st, cts, want):
+    """The autograd VJP of `preprocess_plain`, its forward recomputed."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(w) if x is not None else None for x, w in zip(inputs, want)]
+        out = _plain(leaves, cam, st)[:_N_FLOAT_OUTPUTS]
+        pairs = [(o, c) for o, c in zip(out, cts) if c is not None and o.requires_grad]
+        wrt = [x for x, w in zip(leaves, want) if w]
+        if not pairs or not wrt:
+            return (None,) * _N_INPUTS
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [c for _, c in pairs], allow_unused=True))
+    return tuple(next(got) if w else None for w in want)
+
+
+def _kernel_vjp(inputs, cam, st, cts):
+    means3d, scales, quats, _, dc, sh_rest, means2d_offset, colors_precomp = inputs
+    ct_m2d, ct_depths, ct_conics, ct_colors = cts
+    sh = colors_precomp is None
+    g_means, g_scales, g_quats, g_dc, g_rest = preprocess_bwd(
+        means3d, scales, quats, dc, sh_rest, cam, st, ct_m2d, ct_depths, ct_conics, ct_colors, sh=sh
+    )
+    g_offset = ct_m2d if means2d_offset is not None else None
+    g_precomp = ct_colors if not sh else None
+    return g_means, g_scales, g_quats, None, g_dc, g_rest, g_offset, g_precomp
+
+
+def preprocess(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    dc: torch.Tensor,
+    sh_rest: torch.Tensor,
+    cam: CameraMatrices,
+    *,
+    width: int,
+    height: int,
+    sh_degree: int,
+    scale_modifier: float = 1.0,
+    means2d_offset: torch.Tensor | None = None,
+    active_sh_degree: int | None = None,
+    colors_precomp: torch.Tensor | None = None,
+) -> Preprocessed:
+    """Preprocess every Gaussian of the map (`Preprocess`: on the card the
+    kernels, on the CPU `preprocess_plain`).
+
+    `means2d_offset` is an all-zeros [P, 2] tensor added to the projected
+    pixel means; its gradient is the screen-space positional gradient that
+    densification reads (the reference's retained screenspace_points grad,
+    gaussian_renderer.cpp:41-48). `colors_precomp` [P, 3], where given,
+    replaces the SH colours as they are, unclamped (the reference's
+    override_color slot).
+    """
+    st = PreprocessSettings(width, height, sh_degree, float(scale_modifier), active_sh_degree)
+    return Preprocessed(*Preprocess.apply(
+        means3d, scales, quats, opacities, dc, sh_rest, means2d_offset, colors_precomp,
+        cam.view, cam.full_proj, cam.campos, cam.tanfovx, cam.tanfovy, st,
+    ))

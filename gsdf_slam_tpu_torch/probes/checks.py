@@ -385,3 +385,76 @@ def stream_check(got_steps: list[dict], want_steps: list[dict]) -> dict:
     out = {"steps": len(got_steps), "sequence_equal": key(got_steps) == key(want_steps), "loss_err": loss_err}
     out["ok"] = out["sequence_equal"] and loss_err <= STREAM_LOSS_ATOL and len(got_steps) > 0
     return out
+
+
+# The preprocess kernels against the plain version on the card: the fields
+# that fix the pairs and their depth order bit-equal (the same float32 ops
+# in the same order, no contraction); the colours within PREPROCESS_COLOR
+# (torch sums the SH terms in its own order: a few ulps of values near 1);
+# the gradients within BWD_SMALL, scaled per input (the port's gradient
+# bar), over each group of rows on its own.
+PREPROCESS_EXACT = ("means2d", "depths", "conics", "radii", "rect_min", "rect_max", "tiles_touched")
+PREPROCESS_COLOR = 1e-6
+PREPROCESS_INPUTS = ("means3d", "scales", "quats", "dc", "sh_rest")
+
+
+def preprocess_cotangents(pre, seed: int = 0, visible_only: bool = True, depths: bool = False):
+    """Cotangents of means2d, depths, conics and colours as the blend's
+    backward hands them over: column slices of one [P, 9] buffer (K2's
+    layout), standard normal, zero on rows the binning culls unless not
+    `visible_only`; the depths' None unless `depths`."""
+    p = pre.means2d.shape[0]
+    dev = pre.means2d.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn((p, 9), generator=gen, device=dev)
+    if visible_only:
+        g = g * (pre.tiles_touched > 0)[:, None]
+    ct_depths = torch.randn((p,), generator=gen, device=dev) if depths else None
+    return g[:, 0:2], ct_depths, g[:, 2:5], g[:, 6:9]
+
+
+def preprocess_check(args, cam, st, cts=None, groups=None, means2d_offset=None, colors_precomp=None) -> dict:
+    """`preprocess_fwd` and `preprocess_bwd` against `preprocess_plain` and
+    its autograd VJP, on the same tensors. `args` are the six inputs,
+    `st` a PreprocessSettings; `cts` the four cotangents
+    (`preprocess_cotangents` of the plain forward by default); `groups`
+    {name: bool mask [P]} the rows whose gradients are scaled together
+    (all rows by default). Returns the comparisons and "ok"."""
+    from ..ops import projection
+
+    means3d, scales, quats, opac, dc, rest = args
+    got = projection.preprocess_fwd(*args, cam, st, means2d_offset=means2d_offset, colors_precomp=colors_precomp)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (means3d, scales, quats, dc, rest)]
+    with torch.enable_grad():
+        want = projection.preprocess_plain(
+            leaves[0], leaves[1], leaves[2], opac, leaves[3], leaves[4], cam, width=st.width, height=st.height,
+            sh_degree=st.sh_degree, scale_modifier=st.scale_modifier, means2d_offset=means2d_offset,
+            active_sh_degree=st.active_sh_degree, colors_precomp=colors_precomp,
+        )
+        if cts is None:
+            cts = preprocess_cotangents(want)
+        outs = [(o, c) for o, c in zip((want.means2d, want.depths, want.conics, want.colors), cts)
+                if c is not None and o.requires_grad]
+        g_want = torch.autograd.grad([o for o, _ in outs], leaves, [c for _, c in outs], allow_unused=True)
+    g_got = projection.preprocess_bwd(means3d, scales, quats, dc, rest, cam, st, *cts,
+                                      sh=colors_precomp is None)
+    torch.cuda.synchronize()
+    res = {"bit_equal": {f: bit_equal(getattr(got, f), getattr(want, f).detach()) for f in PREPROCESS_EXACT}}
+    res["colors"] = float((got.colors - want.colors.detach()).abs().max()) if got.colors.numel() else 0.0
+    res["pairs"] = [int(got.tiles_touched.sum()), int(want.tiles_touched.sum())]
+    res["visible"] = int((want.tiles_touched > 0).sum())
+    groups = groups or {"all": torch.ones(means3d.shape[0], dtype=torch.bool, device=means3d.device)}
+    res["grads"] = {}
+    for gname, rows in groups.items():
+        errs = {}
+        for name, a, b, x in zip(PREPROCESS_INPUTS, g_got, g_want, leaves):
+            if a is None:  # no SH gradients where the colours are given
+                continue
+            b = torch.zeros_like(x) if b is None else b
+            a, b = a[rows], b[rows]
+            errs[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12) if b.numel() else 0.0
+        res["grads"][gname] = errs
+    res["ok"] = (all(res["bit_equal"].values()) and res["colors"] <= PREPROCESS_COLOR
+                 and res["pairs"][0] == res["pairs"][1]
+                 and all(e <= BWD_SMALL for errs in res["grads"].values() for e in errs.values()))
+    return res

@@ -77,3 +77,30 @@ def wall_scene(device):
     )
     cam = CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), np.pi / 2, np.pi / 2, device=device)
     return args, cam
+
+
+# KITTI odometry's camera, as the kitti_lidar cells run it: 1226x370,
+# fx = fy = 707.0912, the principal point centred
+KITTI_WIDTH, KITTI_HEIGHT, KITTI_FOCAL = 1226, 370, 707.0912
+# maps of the preprocess checks and timings: the polish's ~0.63M Gaussians
+# and the drive's largest, ~2.0M
+PREPROCESS_SIZES = {"polish": 630_000, "drive": 2_000_000}
+
+
+def kitti_camera(device) -> CameraMatrices:
+    """The identity pose with KITTI's intrinsics (KITTI_WIDTH x KITTI_HEIGHT)."""
+    fovx = 2 * np.arctan(KITTI_WIDTH / (2 * KITTI_FOCAL))
+    fovy = 2 * np.arctan(KITTI_HEIGHT / (2 * KITTI_FOCAL))
+    return CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), fovx, fovy, device=device)
+
+
+def preprocess_args(model: GaussianModel, seed: int = 0) -> tuple[torch.Tensor, ...]:
+    """The preprocess's inputs from `model` (means, activated scales,
+    rotations and opacities, dc, sh_rest), detached, with sh_rest replaced
+    by 0.1 x standard normal noise from `seed` so that every SH band
+    carries colour."""
+    dev = model.xyz.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rest = 0.1 * torch.randn(model.f_rest.shape, generator=gen, device=dev)
+    return (model.xyz.detach(), model.scaling_act().detach(), model.rotation_act().detach(),
+            model.opacity_act()[:, 0].detach(), model.f_dc.detach(), rest)

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import (
-    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, export_binning, new_points, pair2_binning, scene_arrays,
-    surgery_extent, surgery_model, synthetic_binning, torch_args, window_edge_case,
+    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, crafted_preprocess_rows, export_binning, new_points,
+    pair2_binning, scene_arrays, surgery_extent, surgery_model, synthetic_binning, torch_args, window_edge_case,
 )
 
 from gsdf_slam_tpu_torch import kernels
@@ -20,12 +20,16 @@ from gsdf_slam_tpu_torch.convert import copy_state
 from gsdf_slam_tpu_torch.engine import render_depth_state, train_step
 from gsdf_slam_tpu_torch.models import gaussian_model as surgery
 from gsdf_slam_tpu_torch.ops import (
-    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, render, tile_blend,
+    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, projection, render,
+    tile_blend,
 )
 from gsdf_slam_tpu_torch.data import colorize_frame
 from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 from gsdf_slam_tpu_torch.probes import checks, expand_probe, microbench
-from gsdf_slam_tpu_torch.probes.scene import HEIGHT, WALL_SIZE, WIDTH, headline_camera, wall_scene
+from gsdf_slam_tpu_torch.probes.scene import (
+    HEIGHT, KITTI_HEIGHT, KITTI_WIDTH, PREPROCESS_SIZES, WALL_SIZE, WIDTH, headline_camera, headline_scene,
+    kitti_camera, preprocess_args, wall_scene,
+)
 from gsdf_slam_tpu_torch.probes.synthetic_outdoor import drive_pose, kitti_calibration, lidar_scan, raycast_outdoor
 from gsdf_slam_tpu_torch.probes.synthetic_room import make_sequence
 from gsdf_slam_tpu_torch.stream import run_stream
@@ -194,7 +198,8 @@ def test_render_gradients_match_cpu(dev):
         outs[str(d)] = (out.image.detach().cpu(), [x.cpu() for x in grads], dict(kernels.LAUNCHES))
     (img_c, g_c, n_c), (img_g, g_g, n_g) = outs["cpu"], outs[str(dev)]
     assert n_c == dict.fromkeys(kernels.LAUNCHES, 0)
-    assert n_g == {**dict.fromkeys(kernels.LAUNCHES, 0), "tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1}
+    assert n_g == {**dict.fromkeys(kernels.LAUNCHES, 0), "tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1,
+                   "preprocess_fwd": 1, "preprocess_bwd": 1}
     assert float((img_c - img_g).abs().max()) <= 5e-6
     for a, b in zip(g_c, g_g):
         assert float((a - b).abs().max()) / max(float(a.abs().max()), 1e-4) <= 2e-5
@@ -438,6 +443,62 @@ def test_xpose_cumsum_five_launches_agree(dev):
     assert torch.equal(outs[0], pair_table.xpose_cumsum_plain(x))
 
 
+# ---- the preprocess kernels against the plain version on the card
+# (probes/checks.py::preprocess_check's bars)
+
+PREPROCESS_DEGREES = [(d, a) for d in range(4) for a in ((d - 1, d) if d else (d,))]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("degree,active", PREPROCESS_DEGREES)
+def test_preprocess_kernels_match_plain_at_64x64(dev, degree, active, offset):
+    args = [a.to(dev) for a in torch_args(scene_arrays())]
+    st = projection.PreprocessSettings(64, 64, degree, 1.0, active)
+    m2d0 = torch.zeros((args[0].shape[0], 2), device=dev) if offset else None
+    res = checks.preprocess_check(args, _camera(dev), st, means2d_offset=m2d0)
+    assert res["ok"] and res["visible"] > 50, res
+
+
+def test_preprocess_kernels_with_colors_precomp(dev):
+    """The depth render's path: the colours given (strided, as its expand),
+    no SH."""
+    args = [a.to(dev) for a in torch_args(scene_arrays(seed=2))]
+    z = args[0][:, 2].contiguous()
+    st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
+    res = checks.preprocess_check(args, _camera(dev), st, colors_precomp=z[:, None].expand(-1, 3))
+    assert res["ok"] and res["colors"] == 0.0 and "dc" not in res["grads"]["all"], res
+
+
+@pytest.mark.parametrize("scene", ["headline", "polish", "drive"])
+def test_preprocess_kernels_match_plain_at_the_cells_sizes(dev, scene):
+    """The headline (400k Gaussians at 1200x680) and the cells' maps (0.63M
+    and 2.0M Gaussians at KITTI's 1226x370), SH 3 with every band carrying
+    colour; cotangents on the visible rows in K2's strided layout."""
+    if scene == "headline":
+        model, cam, (w, h) = headline_scene(dev), headline_camera(dev), (WIDTH, HEIGHT)
+    else:
+        model, cam, (w, h) = headline_scene(dev, n=PREPROCESS_SIZES[scene]), kitti_camera(dev), (KITTI_WIDTH,
+                                                                                               KITTI_HEIGHT)
+    res = checks.preprocess_check(preprocess_args(model), cam, projection.PreprocessSettings(w, h, 3, 1.0, None))
+    assert res["ok"] and res["visible"] > 10_000, res
+
+
+def test_preprocess_kernels_on_crafted_rows(dev):
+    """Rows at every gate (tests/torch_port_helpers.py::crafted_preprocess_rows:
+    culled, |tz| < 0.1, past the 1.3 tan fov clamp, det == 0, opacity below
+    1/255, clamped colours), every field bit-equal to the plain version on
+    every row, culled ones too; cotangents on every row, the depths'
+    included, each group's gradients scaled on their own."""
+    arrays, masks = crafted_preprocess_rows()
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    groups = {k: torch.from_numpy(v).to(dev) for k, v in masks.items()}
+    st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
+    plain = projection.preprocess_plain(*args, _camera(dev), width=64, height=64, sh_degree=3)
+    cts = checks.preprocess_cotangents(plain, seed=1, visible_only=False, depths=True)
+    res = checks.preprocess_check(args, _camera(dev), st, cts=cts, groups=groups)
+    assert res["ok"], res
+
+
 # ---- model surgery on the card against the CPU, the depth render through
 # K1, and a training step after each surgery (probes/checks.py's bars)
 
@@ -495,7 +556,8 @@ def test_surgery_on_the_card_matches_the_cpu(dev, size, kind):
                    RasterizeConfig(height=h, width=w), OptimizationParams())
     torch.cuda.synchronize()
     assert np.isfinite(float(m.loss)) and model.count == n == m.count
-    assert all(kernels.LAUNCHES[k] == 1 for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd"))
+    assert all(kernels.LAUNCHES[k] == 1
+               for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd"))
     assert all(bool(torch.isfinite(p).all()) for p in model.params().values())
 
 

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_port_helpers import claims_cuda
 
 from gsdf_slam_tpu_torch import convert, kernels
 from gsdf_slam_tpu_torch.config import OptimizationParams
@@ -18,7 +19,7 @@ from gsdf_slam_tpu_torch.engine import Camera, GaussianMapper, Keyframe
 from gsdf_slam_tpu_torch.io import ply_dict_to_gaussians
 from gsdf_slam_tpu_torch.models import GaussianModel
 from gsdf_slam_tpu_torch.models.optimizer import expon_lr, group_lrs
-from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, tile_blend
+from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, projection, tile_blend
 from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 
 REPO = Path(__file__).resolve().parent.parent
@@ -77,18 +78,6 @@ def test_port_imports_no_cv2_at_import_time():
     assert "cv2" not in res.stdout.strip(), res.stdout
 
 
-class _ClaimsCuda(torch.Tensor):
-    """A CPU tensor that reports a CUDA device."""
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
-
-
-def _claims_cuda(t):
-    return torch.Tensor._make_subclass(_ClaimsCuda, t)
-
-
 @pytest.fixture
 def no_kernel_library(monkeypatch, tmp_path):
     """A machine without nvcc and without a built library."""
@@ -102,7 +91,7 @@ def no_kernel_library(monkeypatch, tmp_path):
 @pytest.mark.parametrize("wrapper", [
     "tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export",
     "blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather",
-    "realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum",
+    "realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum", "preprocess_fwd", "preprocess_bwd",
 ])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
@@ -117,7 +106,10 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
     for name in ("realign_copy_plain", "window_gather_rows_plain", "window_gather_cols_plain",
                  "xpose_cumsum_plain"):
         monkeypatch.setattr(pair_table, name, plain_called)
-    z = lambda *s, dt=torch.float32: _claims_cuda(torch.zeros(s, dtype=dt))
+    monkeypatch.setattr(projection, "preprocess_plain", plain_called)
+    z = lambda *s, dt=torch.float32: claims_cuda(torch.zeros(s, dtype=dt))
+    cam = CameraMatrices(z(4, 4), z(4, 4), z(3), z(), z())
+    st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
     calls = {
         "tile_ranges_pack": lambda: binning.tile_ranges_pack(
             z(4, dt=torch.int64), z(4, dt=torch.int64), z(4, dt=torch.int32), z(3, 9), 16),
@@ -141,6 +133,11 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
         "window_gather_cols": lambda: pair_table.window_gather_cols(
             z(1, dt=torch.int32), z(16, 2200), z(2048, dt=torch.int32)),
         "xpose_cumsum": lambda: pair_table.xpose_cumsum(z(1024, 16, dt=torch.int32)),
+        "preprocess_fwd": lambda: projection.preprocess(
+            z(5, 3), z(5, 3), z(5, 4), z(5), z(5, 1, 3), z(5, 15, 3), cam, width=64, height=64, sh_degree=3),
+        "preprocess_bwd": lambda: projection.preprocess_bwd(
+            z(5, 3), z(5, 3), z(5, 4), z(5, 1, 3), z(5, 15, 3), cam, st, z(5, 9)[:, 0:2], None, z(5, 9)[:, 2:5],
+            z(5, 9)[:, 6:9]),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         calls[wrapper]()
@@ -226,5 +223,6 @@ def test_check_rejects_bad_inputs():
         kernels.check("x", torch.zeros(3, 8), torch.float32, (3, 9), dev)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.check("x", torch.zeros(9, 3).t(), torch.float32, (3, 9), dev)
+    kernels.check("x", torch.zeros(9, 3).t(), torch.float32, (3, 9), dev, contiguous=False)
     with pytest.raises(ValueError, match="device"):
         kernels.check("x", torch.zeros(3, 9, device="meta"), torch.float32, (3, 9), dev)

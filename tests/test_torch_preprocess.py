@@ -1,7 +1,9 @@
 """Port parity: transforms, SH and preprocess against the JAX package.
 
 Same numpy inputs through `gsdf_slam_tpu` (reference) and
-`gsdf_slam_tpu_torch` (port), on the CPU.
+`gsdf_slam_tpu_torch` (port), on the CPU. Then `Preprocess`, the autograd
+Function that runs the preprocess kernels on the card, against the plain
+version it takes on the CPU, and its wrappers' checks.
 """
 
 from pathlib import Path
@@ -12,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import (
-    assert_scaled_close, jax_args, jax_camera, scene_arrays, torch_args, torch_camera,
+    assert_scaled_close, claims_cuda, crafted_preprocess_rows, jax_args, jax_camera, scene_arrays, torch_args,
+    torch_camera,
 )
 
 from gsdf_slam_tpu.ops import projection as jproj
@@ -141,3 +144,134 @@ def test_forward_golden_through_port_render():
                  RasterizeConfig(height=64, width=64))
     np.testing.assert_allclose(out.image.numpy().astype(np.float64), g["image"], atol=3e-5)
     np.testing.assert_allclose(out.final_t.numpy().astype(np.float64), g["final_t"], atol=3e-5)
+
+
+# ---- Preprocess on the CPU: today's plain version, bit for bit
+
+# (SH degree, active degree): below the degree where there is one, and at it
+DEGREES = [(d, a) for d in range(4) for a in ((d - 1, d) if d else (d,))]
+
+
+def _fields_and_grads(fn, s, degree, active, offset, precomp):
+    """The float fields, integer fields and input gradients of one weighted
+    loss of every float field (depths included) through `fn`, with
+    gradients asked of all inputs but the camera."""
+    n = int(s["alive"].sum())
+    rng = np.random.default_rng(11)
+    w = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)) for shape in ((n, 2), (n,), (n, 3), (n, 3))]
+    leaves = [t.clone().requires_grad_(True) for t in torch_args(s)]
+    extra = {}
+    if offset:
+        extra["means2d_offset"] = torch.zeros((n, 2), requires_grad=True)
+    if precomp:
+        extra["colors_precomp"] = torch.from_numpy(rng.uniform(0, 2, (n, 3)).astype(np.float32)).requires_grad_(True)
+    pre = fn(*leaves, torch_camera(), width=64, height=64, sh_degree=degree, active_sh_degree=active, **extra)
+    floats = (pre.means2d, pre.depths, pre.conics, pre.colors)
+    loss = sum((f * wf).sum() for f, wf in zip(floats, w))
+    wrt = leaves + list(extra.values())
+    grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+    return [f.detach() for f in floats], [pre.radii, pre.rect_min, pre.rect_max, pre.tiles_touched], grads
+
+
+def _assert_same(got, want):
+    (f_g, i_g, g_g), (f_w, i_w, g_w) = got, want
+    for a, b in zip(f_g + i_g, f_w + i_w):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for k, (a, b) in enumerate(zip(g_g, g_w)):
+        assert (a is None) == (b is None), k
+        assert a is None or torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("degree,active", DEGREES)
+def test_function_is_the_plain_version_bit_for_bit(degree, active, offset):
+    """`preprocess` (the Function, CPU route) against `preprocess_plain`:
+    every field and every input's gradient bit-equal; opacities get none."""
+    s = scene_arrays()
+    got = _fields_and_grads(projection.preprocess, s, degree, active, offset, False)
+    want = _fields_and_grads(projection.preprocess_plain, s, degree, active, offset, False)
+    _assert_same(got, want)
+    assert got[2][3] is None and got[2][0] is not None
+
+
+@pytest.mark.parametrize("offset", [False, True])
+def test_function_with_colors_precomp_is_the_plain_version(offset):
+    """The depth render's path: colours taken as given, their gradient the
+    cotangent, dc and sh_rest untouched."""
+    s = scene_arrays(seed=2)
+    got = _fields_and_grads(projection.preprocess, s, 3, None, offset, True)
+    want = _fields_and_grads(projection.preprocess_plain, s, 3, None, offset, True)
+    _assert_same(got, want)
+    assert got[2][4] is None and got[2][5] is None and got[2][-1] is not None
+
+
+def test_function_under_no_grad_is_the_plain_version():
+    s = scene_arrays(seed=3)
+    with torch.no_grad():
+        got = projection.preprocess(*torch_args(s), torch_camera(), width=64, height=64, sh_degree=3)
+        want = projection.preprocess_plain(*torch_args(s), torch_camera(), width=64, height=64, sh_degree=3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) and not a.requires_grad
+
+
+def _kernel_route_call(case):
+    """A preprocess on tensors that claim the card, broken as `case` says,
+    so that the wrapper's checks run before it would build the kernels."""
+    n = 5
+    z = lambda *shape, dt=torch.float32: claims_cuda(torch.zeros(shape, dtype=dt))
+    args = [z(n, 3), z(n, 3), z(n, 4), z(n), z(n, 1, 3), z(n, 15, 3)]
+    cam = projection.CameraMatrices(z(4, 4), z(4, 4), z(3), z(), z())
+    degree = 3
+    if case == "dtype":
+        args[0] = z(n, 3, dt=torch.float64)
+    elif case == "non_contiguous":
+        args[2] = claims_cuda(torch.zeros(4, n).t())
+    elif case == "device_mix":
+        args[1] = torch.zeros(n, 3)
+    elif case == "sh_degree_4":
+        degree = 4
+    if case == "cotangent_device":
+        st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
+        return lambda: projection.preprocess_bwd(*args[:3], *args[4:], cam, st, torch.zeros(n, 2), None, None, None)
+    return lambda: projection.preprocess(*args, cam, width=64, height=64, sh_degree=degree)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("dtype", TypeError, "means3d: expected torch.float32"),
+    ("non_contiguous", ValueError, "quats: must be contiguous"),
+    ("device_mix", ValueError, "scales: expected device cuda:0, got cpu"),
+    ("sh_degree_4", ValueError, "SH degree must be in"),
+    ("cotangent_device", ValueError, "ct_means2d: expected device cuda:0, got cpu"),
+])
+def test_kernel_wrappers_raise_on_bad_inputs(case, error, match):
+    with pytest.raises(error, match=match):
+        _kernel_route_call(case)()
+
+
+def test_crafted_rows_reach_every_gate():
+    """The card test's crafted rows (tests/test_torch_cuda.py) reach the
+    gates they are named for, and the plain VJP through them is finite."""
+    args, masks = crafted_preprocess_rows()
+    t = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    cam = torch_camera()
+    pre = projection.preprocess_plain(*t, cam, width=64, height=64, sh_degree=3)
+    m = t[0].detach()
+    cov2d = projection.compute_cov2d(m, transforms.build_cov3d(t[1].detach(), t[2].detach()), cam,
+                                     64 / (2.0 * cam.tanfovx), 64 / (2.0 * cam.tanfovy))
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+    g = {k: torch.from_numpy(v) for k, v in masks.items()}
+    culled = pre.tiles_touched == 0
+    assert bool(culled[g["behind"]].all()) and bool((m[g["behind"], 2] < 0).all())
+    assert bool(culled[g["near"]].all()) and int((m[g["near"], 2].abs() < 0.1).sum()) >= 2
+    past = torch.maximum((m[:, 0] / m[:, 2]).abs(), (m[:, 1] / m[:, 2]).abs()) > 1.3
+    assert bool(past[g["past_clamp"]].all()) and not bool(culled[g["past_clamp"]].any())
+    assert bool((det[g["det_zero"]] == 0).all()) and bool(culled[g["det_zero"]].all())
+    faint = g["faint"]
+    assert bool((t[3].detach()[faint] * 255 < 1).all()) and bool((pre.radii[faint] > 0).all())
+    assert bool(culled[faint].all())
+    assert bool((pre.colors.detach()[g["dark"]] == 0).any(dim=1).all())
+    cts = [torch.randn(f.shape, generator=torch.Generator().manual_seed(k))
+           for k, f in enumerate((pre.means2d, pre.depths, pre.conics, pre.colors))]
+    grads = torch.autograd.grad([pre.means2d, pre.depths, pre.conics, pre.colors], [t[i] for i in (0, 1, 2, 4, 5)],
+                                cts)
+    assert all(bool(torch.isfinite(x).all()) for x in grads)

@@ -65,6 +65,67 @@ def torch_args(s):
     return tuple(live(s, k) for k in ("means", "scales", "quats", "opac", "dc", "sh_rest"))
 
 
+def crafted_preprocess_rows():
+    """Rows at each gate of the preprocess and its backward, for the 64x64
+    90-degree identity camera (`torch_camera`), after the live rows of
+    `scene_arrays()`: the six preprocess inputs as numpy arrays and
+    {group: bool row mask}. Groups: "ordinary" (scene_arrays' rows);
+    "behind" and "near" the camera (culled; |z| < 0.1 takes the Jacobian's
+    clamp); "past_clamp" (centres past 1.3 tan fov that still touch tiles);
+    "det_zero" (a needle whose 2D covariance rounds to det == 0); "faint"
+    (opacity below 1/255: radii but no tiles); "dark" (colours clamped at 0)."""
+    s = scene_arrays()
+    base = [s[k][: int(s["alive"].sum())] for k in ("means", "scales", "quats", "opac", "dc", "sh_rest")]
+    rng = np.random.default_rng(5)
+    half = np.pi / 8  # a rotation of 45 degrees about z
+    rows = {
+        "behind": [((0.3, -0.2, -1.0), 0.1), ((0.0, 0.0, -3.0), 0.5), ((1.0, 1.0, -0.5), 0.2)],
+        "near": [((0.1, 0.05, 0.05), 0.1), ((-0.1, 0.2, -0.05), 0.1), ((0.02, 0.03, 0.15), 0.3)],
+        "past_clamp": [((4.5, 0.0, 3.0), 1.0), ((0.0, -5.0, 3.0), 1.0), ((6.0, 6.0, 3.0), 1.5)],
+        "det_zero": [((0.1, 0.2, 3.0), (300.0, 1e-6, 1e-6))],
+        "faint": [((0.2, -0.3, 3.0), 0.2), ((-0.5, 0.1, 4.0), 0.3)],
+        "dark": [((0.1, 0.1, 2.5), 0.2), ((-0.3, 0.4, 3.5), 0.2)],
+    }
+    parts = [list(base)]
+    groups = {"ordinary": len(base[0])}
+    for name, entries in rows.items():
+        n = len(entries)
+        means = np.array([m for m, _ in entries], np.float32)
+        scales = np.array([np.broadcast_to(sc, 3) for _, sc in entries], np.float32)
+        quats = rng.normal(size=(n, 4)).astype(np.float32)
+        quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+        if name == "det_zero":  # this float32 quaternion, unnormalised, makes det round to 0
+            quats[:] = (np.cos(half), 0.0, 0.0, np.sin(half))
+        opac = np.full(n, 0.003 if name == "faint" else 0.8, np.float32)
+        dc = rng.uniform(-1.0, 1.0, (n, 1, 3)).astype(np.float32)
+        if name == "dark":
+            dc[0, 0, :] = -3.0
+            dc[1, 0, 1] = -3.0
+        rest = (0.1 * rng.normal(size=(n, 15, 3))).astype(np.float32)
+        parts.append([means, scales, quats, opac, dc, rest])
+        groups[name] = n
+    args = tuple(np.concatenate([p[k] for p in parts]) for k in range(6))
+    masks, start = {}, 0
+    for name, n in groups.items():
+        masks[name] = np.zeros(len(args[0]), bool)
+        masks[name][start:start + n] = True
+        start += n
+    return args, masks
+
+
+class ClaimsCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes a wrapper's kernel
+    route, so its checks and its missing library can be tested here."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def claims_cuda(t):
+    return torch.Tensor._make_subclass(ClaimsCuda, t)
+
+
 def assert_scaled_close(a, b, atol, name=""):
     """|a - b| / max|a| <= atol (the gradient bar of tests/test_pallas_blend.py)."""
     a = np.asarray(a, np.float64)
