@@ -32,7 +32,17 @@ groups):
 * kept_gap (streaming cells): | kept - kept_ref | / kept_ref of the ingest;
   scale_gap: | |s| - |s_ref| | / |s_ref| of the new rows' initial scales;
   dc_gap: the largest gap of a colour channel's sum of the new rows' SH DC
-  over the sum of the reference's three.
+  over the sum of the reference's three. In a monocular cell the new rows
+  are those of the tracker points and of the depth cache's flush together:
+  before the main segment the check feeds, unchecked, the keyframes that
+  bring the cache to one short of its flush, so the checked keyframe
+  flushes it (`reference/mono.py`); the cache before each checked feed is
+  snapshotted with the parameters;
+* mono_source_gap (monocular cells): the share of a checked keyframe's
+  samples whose depth came from another source (tracker, render, prior or
+  none) than the reference's; mono_depth_gap: the largest | depth -
+  reference | / reference over the samples of the same source; each the
+  larger over the checked keyframes.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from .reference import ingest, splat
+from .reference import ingest, mono, splat
 
 LEAVES = splat.GROUPS
 BETA1 = splat.BETA1
@@ -86,10 +96,29 @@ def cadence_due(config: dict, iteration: int) -> bool:
     return densify_at(config, iteration) or reset_at(config, iteration)
 
 
+def mono_densify(config: dict) -> bool:
+    """Does the cell feed monocular keyframes (a tracker's points and no
+    depth) that the mapper densifies?"""
+    return "tracker" in config["sensors"] and bool(config["mapper"].get("Mapper.inactive_geo_densify", 1))
+
+
+def depth_cache(config: dict) -> int:
+    """Keyframes a flush of the monocular depth cache."""
+    return max(1, int(config["mapper"].get("Mapper.depth_cache", 1)))
+
+
+def flush_feeds(config: dict) -> int:
+    """The most keyframes the check feeds, unchecked, to bring the depth
+    cache to one short of its flush."""
+    return depth_cache(config) - 1 if mono_densify(config) else 0
+
+
 # the steps of the main segment; the most iterations trained, unchecked,
-# to reach the surgery segment
+# to reach the surgery segment: the first densify (iteration 500 in the
+# RGB-D and monocular configurations) lies up to ~380 iterations past a
+# window that trains slowly behind its keyframes
 CHECK_STEPS = 3
-SURGERY_REACH = 110
+SURGERY_REACH = 400
 
 
 def _run_program(cell, steps: int, feed: bool) -> dict:
@@ -99,10 +128,16 @@ def _run_program(cell, steps: int, feed: bool) -> dict:
     seg = {"s0": _state(mp.model, mp.adam), "n0": mp.model.count}
     if feed:
         seg["kf"] = cell.next_kf
+        if mono_densify(cell.config):
+            seg["cache0"] = {"points": [a.copy() for a in mp.depth_cache_points],
+                             "colors": [a.copy() for a in mp.depth_cache_colors], "cached": mp.depth_cached}
         fd = cell.feed(cell.next_kf)
         cell.next_kf += 1
         if fd is not None:
             seg["colourised"] = (np.asarray(fd.points), np.asarray(fd.colors))
+        if "cache0" in seg:
+            seg["mono"] = {k: mp.last_mono_samples[k].copy() for k in ("depth", "source")}
+            seg["cached"] = mp.depth_cached
     p0 = {k: getattr(mp.model, k).detach().clone() for k in LEAVES}
     m0 = {k: mp.adam.m[k].clone() for k in LEAVES}
     n0 = seg["n0"]
@@ -119,6 +154,7 @@ def _run_program(cell, steps: int, feed: bool) -> dict:
             seg["grad_norms"] = {k: _norm((mp.adam.m[k] - BETA1 * m0[k]) / (1 - BETA1)) for k in LEAVES}
     seg["losses"] = losses
     seg["fids"] = [e["fid"] for e in mp.step_log]
+    seg["binnings"] = [e["binning"] for e in mp.step_log]
     seg["iterations"] = [e["iteration"] for e in mp.step_log]
     if mp.model.count == p0["xyz"].shape[0]:
         seg["change_norms"] = {k: _norm(getattr(mp.model, k).detach() - p0[k]) for k in LEAVES}
@@ -134,8 +170,13 @@ def program_segment(cell) -> dict:
     iterations, the surgery segment: train up to two steps short of the
     densify, feed a keyframe (its ingest resets the densification
     statistics), and take the two steps, the second followed by the
-    densify."""
+    densify. In a monocular cell the keyframes that bring the depth cache
+    to one short of its flush are fed first, unchecked."""
     mp = cell.mapper
+    if cell.check_feeds:
+        for _ in range(flush_feeds(cell.config) - mp.depth_cached):
+            cell.feed(cell.next_kf)
+            cell.next_kf += 1
     while any(cadence_due(cell.config, mp.iteration + j) for j in range(1, CHECK_STEPS + 1)):
         mp.train_for_one_iteration()
     seg = _run_program(cell, CHECK_STEPS, cell.check_feeds)
@@ -168,21 +209,37 @@ def _replay(cell, seg: dict, variant: str | None, dtype, gen: torch.Generator) -
         f = cell.stream.frame(seg["kf"])
         if f.scan is not None:
             pts, cols = ingest.colourise(t(f.scan), t(f.image), t(c["proj"]), t(c["tr"]), t(f.lidar_pose), dtype)
-        else:
+        elif f.depth is not None:
             pts, cols = ingest.backproject(t(f.depth), t(f.image), f.t_wc, c["fx"], c["fy"], c["cx"], c["cy"],
                                            dtype=dtype)
+        else:
+            pts, cols = t(f.points).to(dtype), t(f.colors).to(dtype)
         if variant == "altered" and f.scan is not None:
             cols = cols.flip(-1)
         if f.scan is not None:
             out["colourised"] = (pts.float().cpu().numpy(), cols.float().cpu().numpy())
-        _, new = ingest.grow(params["xyz"], pts, cols, n_rest=params["f_rest"].shape[1])
-        out["kept"] = new["xyz"].shape[0]
-        out["new_scale_norm"] = _norm(torch.exp(new["scaling"][:, 0]))
-        out["new_dc_sums"] = new["f_dc"][:, 0].double().sum(0).tolist()
-        for k in LEAVES:
-            params[k] = torch.cat([params[k], new[k].to(dtype)])
-            m[k] = torch.cat([m[k], torch.zeros_like(new[k], dtype=dtype)])
-            v[k] = torch.cat([v[k], torch.zeros_like(new[k], dtype=dtype)])
+        cap = int(cell.config.get("ingest_capacity", 1 << 16))
+
+        def grow(p: torch.Tensor, q: torch.Tensor) -> dict:
+            _, new = ingest.grow(params["xyz"], p, q, n_rest=params["f_rest"].shape[1])
+            for k in LEAVES:
+                params[k] = torch.cat([params[k], new[k].to(dtype)])
+                m[k] = torch.cat([m[k], torch.zeros_like(new[k], dtype=dtype)])
+                v[k] = torch.cat([v[k], torch.zeros_like(new[k], dtype=dtype)])
+            return new
+
+        news = [grow(pts[:cap], cols[:cap])]
+        if "cache0" in seg:
+            out["mono"], flush = mono.densify(params, f, seg["cache0"], c, cell.config["mapper"], dtype,
+                                              swapped=variant == "sources_swapped")
+            if flush is not None:
+                # in chunks of the ingest's capacity, each against the map
+                # the chunks before it grew
+                news += [grow(flush[0][i : i + cap], flush[1][i : i + cap]) for i in range(0, len(flush[0]), cap)]
+        scaling = torch.cat([n["scaling"] for n in news])
+        out["kept"] = scaling.shape[0]
+        out["new_scale_norm"] = _norm(torch.exp(scaling[:, 0]))
+        out["new_dc_sums"] = torch.cat([n["f_dc"] for n in news])[:, 0].double().sum(0).tolist()
     p0 = {k: params[k].clone() for k in LEAVES}
     mapper = cell.config["mapper"]
     opt = _opt(mapper)
@@ -235,7 +292,8 @@ def reference_segment(cell, seg: dict, variant: str | None = None) -> dict:
     "control" (the whole replay in bfloat16), "half_batch" (the loss over
     half the image's rows), "altered" (colours channel-reversed where they
     are made: the colouriser in a LiDAR cell, else the render), or
-    "state_unchanged" (no Adam step)."""
+    "state_unchanged" (no Adam step), or "sources_swapped" (a monocular
+    keyframe's samples take the render's depth before the tracker's)."""
     splat.no_tf32()
     dtype = torch.bfloat16 if variant == "control" else torch.float32
     gen = torch.Generator(device=cell.device).manual_seed(cell.seed)
@@ -272,12 +330,33 @@ def compare(seg: dict, ref: dict) -> dict:
         count = abs(len(cp) - len(cr)) / max(len(cr), 1)
         out["colour_gap"] = float(np.abs(cp[:n] - cr[:n]).mean()) + count if n else 1.0
         out["point_gap"] = float(np.abs(pp[:n] - pr[:n]).max() / np.abs(pr).max()) + count if n else 1.0
+    monos = [(s["mono"], r["mono"]) for s, r in ((seg, ref), (seg.get("surgery"), ref.get("surgery")))
+             if r is not None and "mono" in r]
+    if monos:
+        out["mono_source_gap"] = max(float(np.mean(s["source"] != r["source"])) for s, r in monos)
+        gaps = [0.0]
+        for s, r in monos:
+            same = (s["source"] == r["source"]) & (r["source"] >= 0)
+            if same.any():
+                d, d_ref = s["depth"][same].astype(np.float64), r["depth"][same].astype(np.float64)
+                gaps.append(float(np.max(np.abs(d - d_ref) / d_ref)))
+        out["mono_depth_gap"] = max(gaps)
     if "kept" in ref:
         out["kept_gap"] = abs(seg["kept"] - ref["kept"]) / max(ref["kept"], 1)
         out["scale_gap"] = abs(seg["new_scale_norm"] - ref["new_scale_norm"]) / max(ref["new_scale_norm"], 1e-30)
         scale = max(sum(abs(x) for x in ref["new_dc_sums"]), 1e-30)
         out["dc_gap"] = max(abs(a - b) for a, b in zip(seg["new_dc_sums"], ref["new_dc_sums"])) / scale
     return {k: (float(v) if math.isfinite(v) else float("inf")) for k, v in out.items()}
+
+
+def segment_line(seg: dict, ref: dict) -> str:
+    """The main segment as the check saw it, for a run's record: the
+    keyframes and binnings of its steps, each step's loss and each leaf's
+    first gradient norm, program / reference."""
+    pair = lambda a, b: f"{a:.7g}/{b:.7g}"
+    return (f"segment: keyframes {seg['fids']} binnings {seg['binnings']} losses "
+            f"{' '.join(pair(a, b) for a, b in zip(seg['losses'], ref['losses']))} first gradient "
+            f"{' '.join(f'{k} ' + pair(seg['grad_norms'][k], ref['grad_norms'][k]) for k in LEAVES)}")
 
 
 def verdict(numbers: dict, limits: dict) -> tuple[bool, list[str]]:

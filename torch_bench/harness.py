@@ -9,8 +9,9 @@ check is in `limits/<workload>.json`.
 
 The window drives the port's public entry points (gsdf_slam_tpu_torch):
 `data/loader.py::colorize_frame` for a LiDAR frame,
-`GaussianMapper.feed_keyframe`, `GaussianMapper.train_for_one_iteration`
-and `flush_metrics`. Two loops:
+`GaussianMapper.feed_keyframe` (a monocular keyframe with its tracker
+points and no depth), `GaussianMapper.train_for_one_iteration` and
+`flush_metrics`. Two loops:
 
 * "paced": keyframes fall due at a fixed rate from the window's start (an
   open loop); the loop ingests every due keyframe in order, then trains
@@ -110,8 +111,10 @@ class Cell:
         if self.device.type == "cuda":
             kernels.library()  # from the checkout's build directory, or built there once
         self.check_feeds = self.loop == "paced"
-        # the check feeds up to two keyframes past the window's
-        n = self.traffic["warm_keyframes"] + self.n_window_keyframes() + (2 if self.check_feeds else 0)
+        # the check feeds up to two keyframes past the window's, and in a
+        # monocular cell first those that bring the depth cache to its flush
+        n_check = 2 + check.flush_feeds(self.config) if self.check_feeds else 0
+        n = self.traffic["warm_keyframes"] + self.n_window_keyframes() + n_check
         t1 = time.perf_counter()
         self.stream = make_stream(self.config, self.traffic, self.seed, n, self.device)
         t2 = time.perf_counter()
@@ -136,7 +139,8 @@ class Cell:
 
     def feed(self, k: int):
         """Keyframe k through the program's entry points; a LiDAR frame is
-        colourised first. Returns the colourised frame, if any."""
+        colourised first, a monocular one goes with its tracker points and
+        no depth. Returns the colourised frame, if any."""
         from gsdf_slam_tpu_torch.data import colorize_frame
 
         f = self.stream.frame(k)
@@ -149,7 +153,10 @@ class Cell:
                                           intrinsics=self.intr)
             return fd
         with self.spans("ingest"):
-            self.mapper.feed_keyframe(k, f.t_wc, f.image, depth=f.depth, intrinsics=self.intr)
+            if f.depth is None:
+                self.mapper.feed_keyframe(k, f.t_wc, f.image, points=f.points, colors=f.colors, intrinsics=self.intr)
+            else:
+                self.mapper.feed_keyframe(k, f.t_wc, f.image, depth=f.depth, intrinsics=self.intr)
         return None
 
     # ------------------------------------------------------------- window
@@ -247,6 +254,7 @@ class Cell:
         ref = check.reference_segment(self, seg)
         self.reference_s = time.perf_counter() - t0
         self.reference_stats = ref["stats"]
+        self.segment_line = check.segment_line(seg, ref)
         return check.compare(seg, ref)
 
     def release(self) -> None:

@@ -7,7 +7,8 @@ For each seed, one set-up, a window of `--seconds`, the program's check
 segment, then the reference, and each variant put in the program's place
 against the reference from the same snapshot (`check.reference_segment`):
 "control", the reference in bfloat16; "half_batch", "altered",
-"state_unchanged", the planted faults. Prints one JSON line a seed: the
+"state_unchanged", "sources_swapped" (a monocular cell's), the planted
+faults. Prints one JSON line a seed: the
 seed, the program's numbers, each variant's numbers, and the seconds the
 reference took. Exits 1 without a CUDA card.
 """

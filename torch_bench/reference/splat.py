@@ -18,6 +18,10 @@ The rasterizer's conventions, from the published CUDA code:
   written here as a straight-through clamp;
 * SH colours up to degree 3, +0.5, clamped at 0.
 
+`render_depth` renders the expected depth (each Gaussian's view z as its
+colour over black) through the same preprocess, binning and blend, for the
+monocular densify (`reference/mono.py`).
+
 The image is rendered in blocks of whole tiles. The backward recomputes
 each block with autograd from the loss's gradient of its pixels, so that a
 block's [pairs, 256] panels are the most memory held at once. `dtype` runs
@@ -290,6 +294,30 @@ def render_and_grad(params: dict, cam: Camera, gt: torch.Tensor, bg: torch.Tenso
     grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v)).to(params[k].dtype) for k, v in leaves.items()}
     mean2d_grad = screen[0].grad if screen[0].grad is not None else torch.zeros_like(screen[0])
     return loss.detach(), grads, image.detach(), (mean2d_grad.float(), visible)
+
+
+@torch.no_grad()
+def render_depth(params: dict, cam: Camera, dtype=torch.float32):
+    """The expected-depth render of `params` from `cam`: each Gaussian's
+    view z blended as its colour in all three channels over black, through
+    the preprocess, binning and blend of `render_and_grad`. Returns (depth
+    [H, W], coverage [H, W]) in `dtype`: coverage = 1 - final T, depth = the
+    blended z / max(coverage, 1e-6)."""
+    acc_dtype = torch.float64 if dtype == torch.float32 else torch.float32
+    mean2d, conic, opac, _, depth, rmin, rmax, visible = preprocess(params, cam, dtype)
+    colour = depth[:, None].expand(-1, 3)
+    gw, gh = cam.grid
+    g, tile = bin_pairs(depth, rmin, rmax, visible, gw)
+    bg = torch.zeros(3, dtype=dtype, device=depth.device)
+    tile_z = torch.zeros((gw * gh, TILE * TILE, 3), dtype=dtype, device=depth.device)
+    tile_t = torch.ones((gw * gh, TILE * TILE, 3), dtype=dtype, device=depth.device)
+    for start, end, t0, t1 in _blocks(tile, gw * gh):
+        gb, tb, first, tiles = _block_inputs(g, tile, start, end, t0, t1)
+        z, final_t = _blend_block(gb, tb, tiles, first, mean2d, conic, opac, colour, cam, bg, acc_dtype)
+        tile_z[tiles] = z
+        tile_t[tiles] = final_t[:, :, None]
+    coverage = 1 - _tile_image(tile_t, cam)[..., 0]
+    return _tile_image(tile_z, cam)[..., 0] / torch.clamp_min(coverage, 1e-6), coverage
 
 
 # ------------------------------------------------------------------ densify

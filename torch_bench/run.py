@@ -6,13 +6,16 @@ From the root of a checkout on a machine with an NVIDIA card. Set-up (the
 kernel library from `build/torch_kernels/`, the cell's frames made on the
 card from the seed, the warm segment) runs from the process's start to the
 window's; the window drives the port's mapper; then the check compares the
-program's own segment with the plain reference. Prints the compared
-numbers with their limits as the last lines of standard error, and one
+program's own segment with the plain reference. Prints the checked
+segment's steps (keyframes, binnings, losses, each leaf's first gradient)
+and then the compared numbers with their limits as the last lines of
+standard error, and one
 JSON object as the last line of standard output: `correct`, `attempted`,
 `failed`, `metrics` (the cell's end-to-end metrics with `--trace 0`, its
 per-layer metrics with `--trace 1`), `device`, with `--trace 1`
 `breakdown`, and `check` last. Exits 1, printing no result, without a CUDA
-card.
+card, and where the process has loaded JAX or the JAX package by the time
+the window and the check are over (it names them on standard error).
 """
 
 from __future__ import annotations
@@ -36,6 +39,15 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"), ("TRITON_CACHE_DI
 # idle worker threads spinning beside the loop make runs spread
 for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
     os.environ.setdefault(var, "1")
+
+
+# top-level modules that no run may load: the port is measured without JAX
+JAX_MODULES = ("jax", "jaxlib", "flax", "gsdf_slam_tpu")
+
+
+def jax_loaded(module_names) -> list[str]:
+    """The JAX_MODULES among `module_names`, by whole top-level names."""
+    return sorted({name.split(".")[0] for name in module_names} & set(JAX_MODULES))
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -93,6 +105,7 @@ def run_cell(spec: dict, seed: int, seconds: float, traced: bool, device, t_star
     lines.insert(0, f"seconds: set-up {setup_s:.3f} ({cell.setup_phases}), window {rec.window_s:.3f}, "
                     f"reading it {t_read - t_window:.3f}, check {t_check - t_read:.3f} "
                     f"(reference {cell.reference_s:.3f}, {cell.reference_stats})")
+    lines.insert(1, cell.segment_line)
     result["correct"] = bool(ok and rec.bad_losses == 0)
     result["check"] = {k: {"value": numbers.get(k), "limit": spec["limits"].get(k)}
                        for k in sorted(set(numbers) | set(spec["limits"]))}
@@ -118,6 +131,10 @@ def main(argv=None) -> int:
         print(f"torch_bench: {args.workload} needs {spec['cell']['chips']} cards", file=sys.stderr)
         return 1
     result = run_cell(spec, args.seed, args.seconds, bool(args.trace), torch.device("cuda", 0), T_START)
+    loaded = jax_loaded(list(sys.modules))
+    if loaded:
+        print(f"torch_bench: the run loaded {', '.join(loaded)}; it measures the port without JAX", file=sys.stderr)
+        return 1
     lines = result.pop("_lines")
     sys.stdout.flush()
     for line in lines:

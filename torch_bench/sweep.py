@@ -40,8 +40,8 @@ def main(argv=None) -> int:
         cell = harness.Cell(spec, args.seed, args.seconds, torch.device("cuda", 0))
         cell.setup()
         rec = cell.window()
-        lag = metrics.read("kf_lag_ms_p95", rec)
-        print(json.dumps({"rate_hz": rate, "period_ms": 1e3 / rate, "kf_lag_ms_p95": lag,
+        lag = metrics.read("stream.kf_lag_ms_p95", rec)
+        print(json.dumps({"rate_hz": rate, "period_ms": 1e3 / rate, "stream.kf_lag_ms_p95": lag,
                           "keeps_up": lag is not None and lag <= 1e3 / rate,
                           "iters_per_s": metrics.read("iters_per_s", rec),
                           **metrics.window_summary(rec)}), flush=True)

@@ -108,7 +108,7 @@ def _rec(**kw):
     return SimpleNamespace(**base)
 
 
-@pytest.mark.parametrize("name", ["kf_lag_ms_p95", "bytes_per_gaussian", "mapper.syncs_per_iter", "colourise.ms_per_kf",
+@pytest.mark.parametrize("name", ["stream.kf_lag_ms_p95", "bytes_per_gaussian", "mapper.syncs_per_iter", "colourise.ms_per_kf",
                                   "ingest.ms_per_kf", "step.host_ms", "binning.cached_share", "blend_fwd.roofline",
                                   "blend_bwd.roofline", "device.idle_share", "step.mfu"])
 def test_reader_is_silent_with_nothing_to_read(name):
@@ -119,6 +119,6 @@ def test_readers_of_a_record():
     rec = _rec(loop="paced", lags_s=[i / 1000 for i in range(1, 101)], iterations=50, window_s=2.0,
                peak_bytes=1000, gaussians_end=10, binning={"export": 3, "cached": 1})
     assert metrics.read("iters_per_s", rec) == 25.0
-    assert metrics.read("kf_lag_ms_p95", rec) == pytest.approx(95.05)
+    assert metrics.read("stream.kf_lag_ms_p95", rec) == pytest.approx(95.05)
     assert metrics.read("bytes_per_gaussian", rec) == 100.0
     assert metrics.read("binning.cached_share", rec) == 25.0

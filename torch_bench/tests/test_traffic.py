@@ -1,8 +1,10 @@
 """The traffic's scenes against the program's numpy probes they copy, the
-periodic street, and the seed's hold on the frames (CPU)."""
+periodic street, the monocular stream's tracker points, and the seed's hold
+on the frames (CPU)."""
 
 from __future__ import annotations
 
+import copy
 import json
 
 import numpy as np
@@ -14,7 +16,7 @@ from gsdf_slam_tpu_torch.probes import synthetic_room as sr
 from torch_bench import harness
 from torch_bench.traffic import generator, scenes
 
-from .tiny import tiny_spec
+from .tiny import MONO, tiny_spec
 
 F64 = torch.float64
 
@@ -101,7 +103,7 @@ def test_seed_boxes_are_a_permutation():
     np.testing.assert_allclose(sizes[0], sizes[1], rtol=1e-12)
 
 
-@pytest.mark.parametrize("workload", ["kitti_lidar.drive", "replica_rgbd.room"])
+@pytest.mark.parametrize("workload", ["kitti_lidar.drive", "replica_rgbd.room", MONO])
 def test_one_seed_gives_the_same_frames(workload):
     spec = tiny_spec(workload)
     n = spec["traffic"]["warm_keyframes"] + 4
@@ -110,12 +112,53 @@ def test_one_seed_gives_the_same_frames(workload):
     differ = False
     for k in range(n):
         fa, fb, fc = a.frame(k), b.frame(k), c.frame(k)
-        for name in ("t_wc", "image", "depth", "scan", "lidar_pose"):
+        for name in ("t_wc", "image", "depth", "scan", "lidar_pose", "points", "colors"):
             x, y = getattr(fa, name), getattr(fb, name)
             if x is not None:
                 np.testing.assert_array_equal(x, y)
                 differ |= not np.array_equal(x, getattr(fc, name))
     assert differ
+
+
+def _mono_and_room_streams(seed: int = 2**31 + 3):
+    """The tiny monocular stream and the same stream without the tracker."""
+    spec = tiny_spec(MONO)
+    plain = copy.deepcopy(spec["config"])
+    del plain["sensors"]["tracker"]
+    n = spec["traffic"]["warm_keyframes"] + 4
+    make = lambda config: generator.make_stream(config, spec["traffic"], seed, n, "cpu")
+    return make(spec["config"]), make(plain), n
+
+
+def test_tracker_leaves_the_room_frames():
+    """With the tracker sensor a room frame keeps its pose and image, gains
+    the tracker's points and carries no depth."""
+    mono, room, n = _mono_and_room_streams()
+    for k in range(n):
+        fm, fr = mono.frame(k), room.frame(k)
+        np.testing.assert_array_equal(fm.t_wc, fr.t_wc)
+        np.testing.assert_array_equal(fm.image, fr.image)
+        assert fm.depth is None and fr.depth is not None
+        assert fm.points.shape == fm.colors.shape == (100, 3) and fr.points is None
+
+
+def test_tracker_points_lie_at_the_raycast_depth():
+    """Each tracker point projects onto a pixel of its frame at that
+    pixel's raycast depth, with that pixel's colour."""
+    mono, room, n = _mono_and_room_streams()
+    c = mono.calib
+    for k in range(n):
+        fm, depth = mono.frame(k), room.frame(k).depth
+        t_cw = np.linalg.inv(fm.t_wc.astype(np.float64))
+        p = fm.points.astype(np.float64) @ t_cw[:3, :3].T + t_cw[:3, 3]
+        u = c["fx"] * p[:, 0] / p[:, 2] + c["cx"]
+        v = c["fy"] * p[:, 1] / p[:, 2] + c["cy"]
+        x, y = np.rint(u).astype(int), np.rint(v).astype(int)
+        np.testing.assert_allclose(u, x, atol=1e-3)
+        np.testing.assert_allclose(v, y, atol=1e-3)
+        np.testing.assert_allclose(p[:, 2], depth[y, x], rtol=1e-5)
+        np.testing.assert_array_equal(fm.colors, fm.image[y, x])
+        assert len(set(zip(x, y))) == len(x)
 
 
 def test_traffic_files_are_data():

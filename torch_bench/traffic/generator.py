@@ -15,7 +15,10 @@ Scenes:
   later keyframes poses inside it (yaw anywhere, a pitch and an offset from
   the centre within the traffic's limits), drawn once from the traffic's
   `pool_seed`: every seed feeds the same poses, in an order of its own. A
-  camera image and a depth image a frame.
+  camera image and a depth image a frame; or, where the sensors hold
+  `"tracker": {"points_per_keyframe": N}`, a monocular stream: the camera
+  image and the N map points a tracker hands over with it (`tracker_points`),
+  and no depth.
 """
 
 from __future__ import annotations
@@ -36,11 +39,13 @@ class Frame:
     depth: np.ndarray | None = None  # [H, W] float32 z-depth (RGB-D)
     scan: np.ndarray | None = None  # [N, 3] float32 points in the LiDAR frame
     lidar_pose: np.ndarray | None = None  # [4, 4] float32 T_world_lidar
+    points: np.ndarray | None = None  # [N, 3] float32 tracker map points in the world (monocular)
+    colors: np.ndarray | None = None  # [N, 3] float32 their colours
 
 
 class Stream:
     """The cell's keyframes: `warm` of them for set-up, then those of the
-    window, then one for the check."""
+    window, then those the check feeds (`harness.Cell.setup`)."""
 
     def __init__(self, frames: list[Frame], warm: int, calib: dict, period_frames: int = 0,
                  period_shift: np.ndarray | None = None):
@@ -77,6 +82,22 @@ def calibration(sensors: dict) -> dict:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def tracker_points(t_wc: np.ndarray, image: np.ndarray, depth: np.ndarray, calib: dict, n: int,
+                   rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """A tracker's map points in a raycast frame: `n` pixels drawn by `rng`
+    among those with depth > 0, lifted into the world in float64 by the
+    frame's float64 pose `t_wc`; (points [n, 3], their pixels' colours
+    [n, 3]), float32. The benchmark's copy of
+    `probes/mono.py::tracker_points`, on the stream's camera."""
+    ys, xs = np.nonzero(depth > 0)
+    pick = rng.choice(len(ys), size=min(n, len(ys)), replace=False)
+    y, x = ys[pick], xs[pick]
+    z = depth[y, x].astype(np.float64)
+    pc = np.stack([(x - calib["cx"]) / calib["fx"] * z, (y - calib["cy"]) / calib["fy"] * z, z], -1)
+    t = np.asarray(t_wc, np.float64)
+    return (pc @ t[:3, :3].T + t[:3, 3]).astype(np.float32), image[y, x].astype(np.float32)
 
 
 def make_stream(config: dict, traffic: dict, seed: int, n_keyframes: int, device) -> Stream:
@@ -123,9 +144,19 @@ def make_stream(config: dict, traffic: dict, seed: int, n_keyframes: int, device
             off = torch.tensor([math.sqrt(1 - z * z) * math.cos(phi), math.sqrt(1 - z * z) * math.sin(phi), z],
                                dtype=torch.float64) * rad
             poses.append(scenes.room_pose(yaw, pitch, offset=off))
+        tracker = sensors.get("tracker")
         frames = []
-        for pose in poses[:n_keyframes]:
-            rgb, depth = scenes.raycast_room(pose.to(device), w, h, fx, traffic["room_min_m"], traffic["room_max_m"])
-            frames.append(Frame(pose.numpy().astype(np.float32), _host(rgb), depth=_host(depth)))
+        for k, pose in enumerate(poses[:n_keyframes]):
+            rgb, depth = scenes.raycast_room(pose.to(device), w, h, fx, traffic["room_min_m"], traffic["room_max_m"],
+                                             fy=calib["fy"])
+            t_wc, image, depth = pose.numpy().astype(np.float32), _host(rgb), _host(depth)
+            if tracker is None:
+                frames.append(Frame(t_wc, image, depth=depth))
+                continue
+            # the frame's own draw, so that the room's frames are the same
+            # with and without the tracker
+            pts, cols = tracker_points(pose.numpy(), image, depth, calib, int(tracker["points_per_keyframe"]),
+                                       np.random.default_rng([seed, k]))
+            frames.append(Frame(t_wc, image, points=pts, colors=cols))
         return Stream(frames, warm, calib)
     raise ValueError(f"unknown scene {scene!r}")

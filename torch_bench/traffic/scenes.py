@@ -55,16 +55,17 @@ TR_VELO_TO_CAM = (
 )
 
 
-def camera_rays(t_wc: torch.Tensor, width: int, height: int, fx: float):
+def camera_rays(t_wc: torch.Tensor, width: int, height: int, fx: float, fy: float | None = None):
     """(origin [3], world ray directions [H, W, 3] with unit camera z) of a
-    pinhole of focal `fx` (square pixels) at pose T_wc [4, 4] float64."""
+    pinhole of focals `fx`, `fy` (square pixels if `fy` is None) at pose
+    T_wc [4, 4] float64."""
     dev = t_wc.device
     cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
     ys, xs = torch.meshgrid(
         torch.arange(height, dtype=torch.float64, device=dev),
         torch.arange(width, dtype=torch.float64, device=dev), indexing="ij",
     )
-    d_cam = torch.stack([(xs - cx) / fx, (ys - cy) / fx, torch.ones_like(xs)], -1)
+    d_cam = torch.stack([(xs - cx) / fx, (ys - cy) / (fx if fy is None else fy), torch.ones_like(xs)], -1)
     return t_wc[:3, 3], d_cam @ t_wc[:3, :3].T
 
 
@@ -79,12 +80,13 @@ def _face_texture(face: int, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(base + grad, 0.02, 0.98)
 
 
-def raycast_room(t_wc: torch.Tensor, width: int, height: int, fx: float, room_min=ROOM_MIN, room_max=ROOM_MAX):
+def raycast_room(t_wc: torch.Tensor, width: int, height: int, fx: float, room_min=ROOM_MIN, room_max=ROOM_MAX,
+                 fy: float | None = None):
     """(rgb [H, W, 3] float32, z-depth [H, W] float32) of the interior of
     the box [room_min, room_max] from T_wc, as
     `probes/synthetic_room.py::raycast_room` (its plain scene, `hard=False`,
-    in the probe's box by default)."""
-    o, d = camera_rays(t_wc, width, height, fx)
+    in the probe's box by default); `fy` as in `camera_rays`."""
+    o, d = camera_rays(t_wc, width, height, fx, fy)
     best_t = torch.full((height, width), math.inf, dtype=torch.float64, device=d.device)
     rgb = torch.zeros((height, width, 3), dtype=torch.float64, device=d.device)
     face = 0
