@@ -40,6 +40,11 @@ Phases, each printing its own lines:
    checked against the plain version and its autograd VJP
    (probes/checks.py::preprocess_check), then each kernel's time beside
    the plain version's and its bound on bytes, in turns;
+5c. the loss kernels (loss_fwd, loss_bwd) at 1226x370, 1200x680, 640x480
+   and 185x1226, masked and not, and on half of KITTI's rows, against the
+   plain version, twice, bit-equal (probes/checks.py::loss_check); then
+   each kernel's time beside the plain version's and its bound on bytes,
+   in turns, and the torch-op loss's;
 6. probes: each probe kernel (blend_probe_fwd in its six modes,
    blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
    version on the 64x64 scene and on the opaque wall (32x32, where the
@@ -201,6 +206,10 @@ KERNELS = {
     # XLA's fusion
     "preprocess_fwd": dict(source="gsdf_slam_tpu_torch/csrc/preprocess.cu", replaces="none"),
     "preprocess_bwd": dict(source="gsdf_slam_tpu_torch/csrc/preprocess.cu", replaces="none"),
+    # phase 5c: no Pallas kernel; the JAX package leaves the loss to XLA's
+    # fusion
+    "loss_fwd": dict(source="gsdf_slam_tpu_torch/csrc/loss.cu", replaces="none"),
+    "loss_bwd": dict(source="gsdf_slam_tpu_torch/csrc/loss.cu", replaces="none"),
 }
 PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
 PAIR_TABLE = ("realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum")
@@ -257,6 +266,9 @@ KITTI_W, KITTI_H = 1226, 370
 SCAN_POINTS = 120_000
 KITTI_FRAMES, POLISH_ITERS, SYNC_FRAME = 20, 40, 10
 ROOM_FRAMES, ROOM_W, ROOM_H = 60, 1200, 680
+# phase 5c: the loss kernels' image sizes (width, height): KITTI's, the
+# room's, the mono mode's and a tall one
+LOSS_SIZES = ((1226, 370), (1200, 680), (640, 480), (185, 1226))
 SHORT_FRAMES, SHORT_SIZE, SHORT_REBIN = 6, 64, 4
 # phase 10: the mono stream's keyframes (the room at ROOM_W x ROOM_H), its
 # polish iterations and tracker points a keyframe; a small correction after
@@ -650,7 +662,8 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     # the fresh run next to it
     turn_median = []
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), "blend_fwd_export": 1, "tile_ranges_pack": 1,
-            "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n}
+            "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n,
+            "loss_fwd": n, "loss_bwd": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
         m, a = copy_state(model, adam)
         if kind == "fresh":
@@ -766,6 +779,56 @@ def drive_preprocess(torch, device, launches, time_entry) -> list[str]:
                    launches["preprocess_bwd"], grad_err, bound_ms(bwd_bytes))
         del args, means3d, scales, quats, opac, dc, rest, pre, cts, leaves, g_pre, outs, outs_cts
         torch.cuda.empty_cache()
+    return failed
+
+
+def drive_loss(torch, device, launches, time_entry) -> list[str]:
+    """Phase 5c: loss_fwd and loss_bwd at the images the modes train on,
+    masked and not, and on the first half of the rows of KITTI's (the
+    check's half-batch fault), against the plain version, twice
+    (probes/checks.py::loss_check); then each kernel's time at KITTI's
+    1226x370 beside the plain version's and its bound on bytes, in turns,
+    and the torch-op loss with its autograd backward on CUDA events.
+    Returns the failed checks."""
+    from gsdf_slam_tpu_torch.ops import losses
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms, cuda_ms
+
+    failed, results = [], {}
+    for w, h in LOSS_SIZES:
+        for masked in (False, True):
+            res = results[w, h, masked] = checks.loss_check(*checks.loss_inputs(w, h, masked, device))
+            log(f"[loss] {w}x{h}{' masked' if masked else ''}: {json.dumps(res)}")
+            if not res["ok"]:
+                failed.append(f"loss@{w}x{h}{'/masked' if masked else ''}")
+    for masked in (False, True):
+        r, g, m = checks.loss_inputs(KITTI_W, KITTI_H, masked, device, seed=1)
+        half = KITTI_H // 2
+        res = checks.loss_check(r[:half], g[:half], None if m is None else m[:half])
+        log(f"[loss] rows 0-{half} of {KITTI_W}x{KITTI_H}{' masked' if masked else ''}: {json.dumps(res)}")
+        if not res["ok"]:
+            failed.append(f"loss@row-slice{'/masked' if masked else ''}")
+    r, g, _ = checks.loss_inputs(KITTI_W, KITTI_H, False, device)
+    res = results[KITTI_W, KITTI_H, False]
+    one = torch.ones((), device=device)
+    _, dmaps = losses.loss_fwd(r, g, None, 0.2)
+    image_bytes = KITTI_W * KITTI_H * 3 * 4
+    shapes = f"{KITTI_W}x{KITTI_H}x3 float32, no mask"
+    # forward: the two images read, the three derivative maps written;
+    # backward: the maps and the two images read, the gradient written
+    time_entry("loss_fwd", lambda: losses.loss_fwd(r, g, None, 0.2),
+               lambda: losses.mapper_loss_plain(r, g, None, 0.2), shapes, launches["loss_fwd"], res["loss_err"],
+               bound_ms(5 * image_bytes))
+    time_entry("loss_bwd", lambda: losses.loss_bwd(r, g, None, 0.2, dmaps, one),
+               lambda: losses.mapper_loss_grad_plain(r, g, None, 0.2, one), shapes, launches["loss_bwd"],
+               res["grad_err"], bound_ms(6 * image_bytes))
+    leaf = r.detach().clone().requires_grad_(True)
+
+    def torch_ops():
+        torch.autograd.grad(losses.mapper_loss_plain(leaf, g, None, 0.2), leaf)
+
+    log(f"[loss] the torch-op loss and its autograd backward (the former step's): {cuda_ms(torch_ops, 3):.4f} ms "
+        f"on CUDA events at {shapes}")
     return failed
 
 
@@ -1159,7 +1222,7 @@ def drive_streaming(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd")
     proj, tr = kitti_calibration(KITTI_W, KITTI_H)
 
     def frame_inputs(i):
@@ -1249,7 +1312,8 @@ def drive_streaming(torch, device, smi):
             or launches["blend_fwd"] != steps["fresh"] + steps["cached"]
             or launches["blend_bwd"] != len(streamed + polish)
             or launches["preprocess_fwd"] != len(streamed + polish)
-            or launches["preprocess_bwd"] != len(streamed + polish)):
+            or launches["preprocess_bwd"] != len(streamed + polish)
+            or launches["loss_fwd"] != len(streamed + polish) or launches["loss_bwd"] != len(streamed + polish)):
         failed.append("stream:kitti-launches-disagree-with-the-binning")
     failed += [f"stream:kitti-{k}-not-launched" for k in path_kernels if launches[k] == 0]
     del mapper
@@ -1307,7 +1371,7 @@ def drive_mono(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd")
     settings = mono.mono_settings()
     intr = mono.room_intrinsics(ROOM_W, ROOM_H)
 
@@ -1391,7 +1455,8 @@ def drive_mono(torch, device, smi):
     n_bin = mapper.binning_counts
     if (launches["blend_bwd"] != steps or launches["tile_ranges_pack"] != n_bin["fresh"] + renders
             or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0
-            or launches["preprocess_bwd"] != steps):
+            or launches["preprocess_bwd"] != steps or launches["loss_fwd"] != steps
+            or launches["loss_bwd"] != steps):
         failed.append("mono:launches-disagree-with-the-steps-and-renders")
     failed += [f"mono:{k}-not-launched" for k in path_kernels[:3] if launches[k] == 0]
 
@@ -1628,7 +1693,8 @@ def main() -> int:
         failed.append("main:loss-not-finite")
     if model.count != n0:
         failed.append("main:count-changed")
-    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd"):
+    for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd", "loss_fwd",
+                 "loss_bwd"):
         if launches[name] < WARMUP + TIMED:
             failed.append(f"main:{name}-launched-{launches[name]}")
     if launches["blend_fwd_export"] != 0:
@@ -1751,6 +1817,8 @@ def main() -> int:
 
     # ---- 5b. the preprocess kernels at the cells' map sizes
     failed += drive_preprocess(torch, device, launches, time_entry)
+    # ---- 5c. the loss kernels at the cells' and the modes' image sizes
+    failed += drive_loss(torch, device, launches, time_entry)
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # blend_probe.cu holds blend_probe_fwd (six modes), the two other blend
 # probes a file each; the four pair-table kernels share pair_table.cu
 SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
-           "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu", "preprocess.cu")
+           "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu", "preprocess.cu",
+           "loss.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -44,13 +45,14 @@ LAUNCHES = {
     "tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0,
     "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
     "realign_copy": 0, "window_gather_rows": 0, "window_gather_cols": 0, "xpose_cumsum": 0,
-    "preprocess_fwd": 0, "preprocess_bwd": 0,
+    "preprocess_fwd": 0, "preprocess_bwd": 0, "loss_fwd": 0, "loss_bwd": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # keys, order, pair_gid, table, M, ranges, gid_out, payload, stream
     "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
@@ -97,6 +99,13 @@ _SIGNATURES = {
     # strides; the gradients of means3d, scales, quats, dc, sh_rest, stream
     "gsdf_preprocess_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _P, _L, _L, _P, _L,
                             _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P),
+    # render, gt and mask (null: every pixel kept), each with its three
+    # strides; H, W, the 11 taps (host array), C1, C2, lambda; dmaps,
+    # partials, loss, stream (two launches: the tiles, the final sum)
+    "gsdf_loss_fwd": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _P, _F, _F, _D, _P, _P, _P, _P),
+    # render, gt, mask as above; H, W, taps, dmaps, the upstream gradient
+    # (device scalar), (1 - lambda) / N, lambda / N; grad, stream
+    "gsdf_loss_bwd": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _P, _P, _P, _F, _F, _P, _P),
 }
 
 _lib = None

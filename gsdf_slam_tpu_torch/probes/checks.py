@@ -62,6 +62,13 @@ FWD_SMALL of 0.5 or its depth within the depth bar of 0.2, and such
 samples are counted. Counts after every feed equal, and the step log as a
 short stream's.
 
+The loss kernels (loss_fwd, loss_bwd) against the plain version on the
+card, on the same tensors: the loss within LOSS_ATOL (the two means are
+summed in other orders: the kernel by tiles and then in double, torch by
+its own tree), the gradient within BWD_SMALL scaled (the port's gradient
+bar; it is computed in the plain version's op order, so it is expected to
+agree far closer), two runs' losses and gradients bit-equal (no atomics).
+
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
 chunks). That moves log T_eff by at least log1p(-1/255) and, for `notrans`,
@@ -86,6 +93,7 @@ MAX_FLIPS = 80
 FIELDS = {"means2d": slice(0, 2), "conics": slice(2, 5), "opacity": slice(5, 6), "colors": slice(6, 9)}
 SURGERY_RTOL = 1e-6
 STREAM_LOSS_ATOL = 1e-5
+LOSS_ATOL = 1e-6
 
 
 def bit_equal(got, want) -> bool:
@@ -457,4 +465,56 @@ def preprocess_check(args, cam, st, cts=None, groups=None, means2d_offset=None, 
     res["ok"] = (all(res["bit_equal"].values()) and res["colors"] <= PREPROCESS_COLOR
                  and res["pairs"][0] == res["pairs"][1]
                  and all(e <= BWD_SMALL for errs in res["grads"].values() for e in errs.values()))
+    return res
+
+
+def loss_inputs(width: int, height: int, masked: bool, device, seed: int = 0):
+    """(rendered, gt, mask) for the loss kernels at width x height: the gt
+    uniform in [0, 1]; the render the gt plus noise, clipped, equal to it on
+    ~5% of the pixels (where the L1 term's sign is 0), and a crop of a
+    buffer whose width is a multiple of 16, strided as the blend's image;
+    with `masked`, an [H, W] float mask of 0s on a border band and ~10% of
+    the pixels, else None."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gt = torch.rand((height, width, 3), generator=gen, device=device)
+    noisy = (gt + 0.1 * torch.randn(gt.shape, generator=gen, device=device)).clamp(0.0, 1.0)
+    tie = torch.rand((height, width, 1), generator=gen, device=device) < 0.05
+    buf = torch.zeros((height, (width + 15) // 16 * 16, 3), device=device)
+    buf[:, :width] = torch.where(tie, gt, noisy)
+    rendered = buf[:, :width]
+    mask = None
+    if masked:
+        mask = (torch.rand((height, width), generator=gen, device=device) > 0.1).float()
+        band = max(1, min(height, width) // 20)
+        mask[:band] = 0.0
+        mask[:, :band] = 0.0
+    return rendered, gt, mask
+
+
+def loss_check(rendered, gt, mask, lambda_dssim: float = 0.2) -> dict:
+    """`loss_fwd` and `loss_bwd` against `mapper_loss_plain` and
+    `mapper_loss_grad_plain` on the same tensors, the upstream gradient 1;
+    twice, the second run held bit-equal to the first. Returns the
+    comparisons and "ok"."""
+    from ..ops import losses
+
+    one = torch.ones((), device=rendered.device)
+    runs = []
+    for _ in range(2):
+        loss, dmaps = losses.loss_fwd(rendered, gt, mask, lambda_dssim)
+        runs.append((loss, dmaps, losses.loss_bwd(rendered, gt, mask, lambda_dssim, dmaps, one)))
+    want = losses.mapper_loss_plain(rendered, gt, mask, lambda_dssim)
+    g_want = losses.mapper_loss_grad_plain(rendered, gt, mask, lambda_dssim, one)
+    _, x, _ = losses._masked(rendered, gt, mask)
+    maps_want = torch.stack([d.permute(2, 0, 1) for d in losses.ssim_derivative_maps(x, gt)])
+    torch.cuda.synchronize()
+    (loss, dmaps, grad), (loss2, dmaps2, grad2) = runs
+    res = {
+        "shape": list(rendered.shape), "masked": mask is not None,
+        "loss": float(loss), "loss_err": abs(float(loss) - float(want)),
+        "grad_err": float((grad - g_want).abs().max()) / max(float(g_want.abs().max()), 1e-12),
+        "grad_bit_equal": bit_equal(grad, g_want), "maps_bit_equal": bit_equal(dmaps, maps_want),
+        "repeat_bit_equal": bit_equal(loss, loss2) and bit_equal(grad, grad2) and bit_equal(dmaps, dmaps2),
+    }
+    res["ok"] = res["loss_err"] <= LOSS_ATOL and res["grad_err"] <= BWD_SMALL and res["repeat_bit_equal"]
     return res

@@ -20,7 +20,7 @@ from gsdf_slam_tpu_torch.convert import copy_state
 from gsdf_slam_tpu_torch.engine import render_depth_state, train_step
 from gsdf_slam_tpu_torch.models import gaussian_model as surgery
 from gsdf_slam_tpu_torch.ops import (
-    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, pair_table, preprocess, projection, render,
+    CameraMatrices, RasterizeConfig, binning, blend, blend_probe, losses, pair_table, preprocess, projection, render,
     tile_blend,
 )
 from gsdf_slam_tpu_torch.data import colorize_frame
@@ -499,6 +499,60 @@ def test_preprocess_kernels_on_crafted_rows(dev):
     assert res["ok"], res
 
 
+# ---- the loss kernels against the plain version on the card
+# (probes/checks.py::loss_check's bars)
+
+LOSS_SIZES = [(1226, 370), (1200, 680), (640, 480), (185, 1226)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("w,h", LOSS_SIZES)
+def test_loss_kernels_match_plain(dev, w, h, masked):
+    """KITTI's image, the room's, the mono mode's and a tall one; the render
+    strided as the blend's; twice, bit-equal."""
+    res = checks.loss_check(*checks.loss_inputs(w, h, masked, dev))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("w,h", [(7, 5), (1, 1), (33, 17), (11, 40)])
+def test_loss_kernels_on_images_smaller_than_a_tile(dev, w, h, masked):
+    """Images smaller than the window or a tile, and not tile multiples."""
+    res = checks.loss_check(*checks.loss_inputs(w, h, masked, dev, seed=2))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_loss_kernels_on_a_row_slice(dev, masked):
+    """The first half of the rows of KITTI's image, as the benchmark's
+    half-batch fault feeds the loss."""
+    r, g, m = checks.loss_inputs(KITTI_WIDTH, KITTI_HEIGHT, masked, dev, seed=1)
+    half = KITTI_HEIGHT // 2
+    res = checks.loss_check(r[:half], g[:half], None if m is None else m[:half])
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("mask_kind", [None, "hw", "hw3"])
+def test_mapper_loss_on_the_card_against_the_cpu(dev, mask_kind):
+    """The autograd Function through its kernels against its plain path on
+    the CPU: one launch each, the loss within 1e-6, the gradient 2e-5
+    scaled, with an upstream gradient of 3."""
+    r, g, m = checks.loss_inputs(96, 72, mask_kind is not None, dev, seed=4)
+    if mask_kind == "hw3":
+        m = torch.stack([m, m.flip(0), m.flip(1)], dim=-1)
+    outs = {}
+    for d in ("cpu", dev):
+        leaf = r.to(d).detach().requires_grad_(True)
+        kernels.reset_launch_counts()
+        loss = losses.mapper_loss(leaf, g.to(d), None if m is None else m.to(d), 0.2)
+        (grad,) = torch.autograd.grad(3.0 * loss, leaf)
+        outs[str(d)] = (float(loss.detach()), grad.cpu(), dict(kernels.LAUNCHES))
+    (l_c, g_c, n_c), (l_g, g_g, n_g) = outs["cpu"], outs[str(dev)]
+    assert n_c["loss_fwd"] == n_c["loss_bwd"] == 0 and n_g["loss_fwd"] == n_g["loss_bwd"] == 1
+    assert abs(l_c - l_g) <= checks.LOSS_ATOL
+    assert float((g_c - g_g).abs().max()) / float(g_c.abs().max()) <= checks.BWD_SMALL
+
+
 # ---- model surgery on the card against the CPU, the depth render through
 # K1, and a training step after each surgery (probes/checks.py's bars)
 
@@ -557,7 +611,8 @@ def test_surgery_on_the_card_matches_the_cpu(dev, size, kind):
     torch.cuda.synchronize()
     assert np.isfinite(float(m.loss)) and model.count == n == m.count
     assert all(kernels.LAUNCHES[k] == 1
-               for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd"))
+               for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd", "loss_fwd",
+                         "loss_bwd"))
     assert all(bool(torch.isfinite(p).all()) for p in model.params().values())
 
 
