@@ -45,6 +45,13 @@ Phases, each printing its own lines:
    plain version, twice, bit-equal (probes/checks.py::loss_check); then
    each kernel's time beside the plain version's and its bound on bytes,
    in turns, and the torch-op loss's;
+5d. the binning's passes (bin_count, bin_write) and the card's binning
+   route at the headline and at the cells' loads (street scenes binning
+   their steps' pre-cull pairs), against the plain
+   route, bit-equal (probes/checks.py::binning_check); then each pass's
+   time beside its plain version's and its bound on bytes, the card's
+   route's device time beside torch.sort of the plain route's 64-bit keys,
+   and both routes whole on CUDA events;
 6. probes: each probe kernel (blend_probe_fwd in its six modes,
    blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
    version on the 64x64 scene and on the opaque wall (32x32, where the
@@ -210,6 +217,10 @@ KERNELS = {
     # fusion
     "loss_fwd": dict(source="gsdf_slam_tpu_torch/csrc/loss.cu", replaces="none"),
     "loss_bwd": dict(source="gsdf_slam_tpu_torch/csrc/loss.cu", replaces="none"),
+    # phase 5d: no Pallas kernel; the JAX package leaves the expansion, the
+    # cull and the sort to XLA ops
+    "bin_count": dict(source="gsdf_slam_tpu_torch/csrc/binning.cu", replaces="none"),
+    "bin_write": dict(source="gsdf_slam_tpu_torch/csrc/binning.cu", replaces="none"),
 }
 PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
 PAIR_TABLE = ("realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum")
@@ -325,7 +336,9 @@ def stage_inputs(torch, args, cam, width, height):
             pre.means2d, pre.conics, args[3], grid_w=gw,
         )
         table = binning.payload_table(pre.means2d, pre.conics, args[3], pre.colors)
-    return dict(keys=keys, order=order, pair_gid=pair_gid, table=table, total=total,
+    # K3 takes the sorted pairs' tile ids, int32 as the step's binning
+    tiles = (keys >> 32).to(torch.int32)
+    return dict(tiles=tiles, order=order, pair_gid=pair_gid, table=table, total=total,
                 gw=gw, gh=gh, p=args[0].shape[0], width=width, height=height)
 
 
@@ -363,7 +376,7 @@ def check_kernels(torch, name, st, k1_bound, k2_bound, headline=False):
     from gsdf_slam_tpu_torch.probes import checks
 
     num_tiles = st["gw"] * st["gh"]
-    args3 = (st["keys"], st["order"], st["pair_gid"], st["table"], num_tiles)
+    args3 = (st["tiles"], st["order"], st["pair_gid"], st["table"], num_tiles)
     r_k, g_k, p_k = binning.tile_ranges_pack(*args3)
     r_p, g_p, p_p = binning.tile_ranges_pack_plain(*args3)
     torch.cuda.synchronize()
@@ -662,7 +675,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     # the fresh run next to it
     turn_median = []
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), "blend_fwd_export": 1, "tile_ranges_pack": 1,
-            "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n,
+            "bin_count": 1, "bin_write": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n,
             "loss_fwd": n, "loss_bwd": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
         m, a = copy_state(model, adam)
@@ -832,6 +845,104 @@ def drive_loss(torch, device, launches, time_entry) -> list[str]:
     return failed
 
 
+def drive_binning(torch, device, launches, time_entry) -> list[str]:
+    """Phase 5d: the binning at the headline (400k Gaussians at 1200x680)
+    and the cells' loads (probes/scene.py::street_scene: 0.63M and 2.0M
+    Gaussians at KITTI's 1226x370, binning about the 5.4M and 7.5M pre-cull
+    pairs of the polish's and the drive's steps): the card's route against
+    the plain route and each pass against its plain version, bit-equal
+    (probes/checks.py::binning_check); then `bin_count` and `bin_write`
+    timed beside their plain versions with their bounds on bytes and the
+    check's largest difference (time_entry); the card's route's device time
+    without its read-back (graph ms) beside torch.sort of the plain route's
+    64-bit keys, the Gaussians' 32-bit depth keys and the pairs' tile ids;
+    and
+    each route whole, read-backs included, on CUDA events. Returns the
+    failed checks."""
+    from gsdf_slam_tpu_torch.ops import binning, preprocess, tile_grid
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.scene import (
+        HEIGHT, KITTI_HEIGHT, KITTI_WIDTH, N_HEADLINE, STREET_SIZES, WIDTH, headline_camera, headline_scene,
+        kitti_camera, preprocess_args, street_scene,
+    )
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms, cuda_ms, graph_ms
+
+    failed = []
+    sizes = {"headline": (N_HEADLINE, WIDTH, HEIGHT, headline_camera(device), None),
+             **{tag: (n, KITTI_WIDTH, KITTI_HEIGHT, kitti_camera(device), mult)
+                for tag, (n, _, mult) in STREET_SIZES.items()}}
+    for tag, (n, w, h, cam, mult) in sizes.items():
+        args = preprocess_args(headline_scene(device, n=n)) if mult is None else street_scene(device, n, mult)
+        with torch.no_grad():
+            pre = preprocess(*args, cam, width=w, height=h, sh_degree=3)
+        gw, gh = tile_grid(w, h)
+        a = (pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d, pre.conics, args[3],
+             pre.colors)
+        res = checks.binning_check(*a, grid_w=gw, grid_h=gh)
+        log(f"[binning] {tag}: {n} Gaussians at {w}x{h}: {json.dumps(res)}")
+        if not res["ok"]:
+            failed.append(f"binning@{tag}")
+        perm = binning.depth_order(pre.depths)
+        log_op = torch.log(args[3] * 255.0)
+        gauss = (perm, pre.tiles_touched, pre.rect_min, pre.rect_max, pre.means2d, pre.conics, log_op)
+        counts, totals = binning.bin_count(*gauss, grid_w=gw)
+        warp_end = torch.cumsum(counts, 0)
+        kept, total = totals.tolist()
+        tiles, pair_gid = binning.bin_write(*gauss, warp_end, kept, grid_w=gw)
+        table = binning.payload_table(pre.means2d, pre.conics, args[3], pre.colors)
+        sorted_keys, order = binning.expand_and_sort(*a[:7], grid_w=gw)[:2]
+        keys = torch.empty_like(sorted_keys)
+        keys[order] = sorted_keys  # the plain route's keys before its sort
+        depth_keys = pre.depths.view(torch.int32) ^ torch.iinfo(torch.int32).min
+        st_tiles, st_order = torch.sort(tiles, stable=True)
+        visible = int((pre.tiles_touched > 0).sum())
+        # a pass reads perm and tiles_touched of every Gaussian and rect_min,
+        # rect_max's x, the mean, conic and log_op of the visible ones (36
+        # bytes); bin_count writes its counts and totals, bin_write reads
+        # the warp scan and writes a tile id and a Gaussian a kept pair
+        reads = 12 * n + 36 * visible
+        bounds = {"bin_count": bound_ms(reads + 4 * (n // 32) + 16),
+                  "bin_write": bound_ms(reads + 8 * (n // 32) + 8 * kept)}
+
+        def route_device():  # the card's route with its read-back's result known
+            p = binning.depth_order(pre.depths)
+            lo = torch.log(args[3] * 255.0)
+            g = (p, pre.tiles_touched, pre.rect_min, pre.rect_max, pre.means2d, pre.conics, lo)
+            c, _ = binning.bin_count(*g, grid_w=gw)
+            tl, pg = binning.bin_write(*g, torch.cumsum(c, 0), kept, grid_w=gw)
+            st, o = torch.sort(tl, stable=True)
+            return binning.tile_ranges_pack(
+                st, o, pg, binning.payload_table(pre.means2d, pre.conics, args[3], pre.colors), gw * gh)
+
+
+        shapes = f"{n} Gaussians ({visible} visible), {total} pairs before the cull, {kept} kept, {gw * gh} tiles"
+        time_entry("bin_count", lambda: binning.bin_count(*gauss, grid_w=gw),
+                   lambda: binning.bin_count_plain(*gauss, grid_w=gw), shapes, launches["bin_count"],
+                   res["count_err"], bounds["bin_count"])
+        time_entry("bin_write", lambda: binning.bin_write(*gauss, warp_end, kept, grid_w=gw),
+                   lambda: binning.bin_write_plain(*gauss, warp_end, kept, grid_w=gw), shapes,
+                   launches["bin_write"], res["write_err"], bounds["bin_write"])
+        route = {
+            "route_device": graph_ms(route_device),
+            "sort64_plain_keys": graph_ms(lambda: torch.sort(keys, stable=True)),
+            "sort32_depth_keys": graph_ms(lambda: torch.sort(depth_keys, stable=True)),
+            "sort_tile_ids": graph_ms(lambda: torch.sort(tiles, stable=True)),
+            "k3": graph_ms(lambda: binning.tile_ranges_pack(st_tiles, st_order, pair_gid, table, gw * gh)),
+        }
+        turns = [cuda_ms(f, 5) for f in (
+            lambda: binning.bin_and_pack_plain(*a, grid_w=gw, grid_h=gh),
+            lambda: binning.bin_and_pack_depth_first(*a, grid_w=gw, grid_h=gh),
+            lambda: binning.bin_and_pack_depth_first(*a, grid_w=gw, grid_h=gh),
+            lambda: binning.bin_and_pack_plain(*a, grid_w=gw, grid_h=gh))]
+        route.update(plain_route_events=(turns[0] + turns[3]) / 2, card_route_events=(turns[1] + turns[2]) / 2)
+        log(f"[binning] {tag} ms: {json.dumps(route)} (whole routes in turns plain, card, card, plain: "
+            f"{[round(v, 4) for v in turns]}) at {shapes}")
+        del args, pre, a, gauss, perm, log_op, counts, totals, warp_end, tiles, pair_gid, table, keys, sorted_keys
+        del order, depth_keys, st_tiles, st_order
+        torch.cuda.empty_cache()
+    return failed
+
+
 def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
     """The probe kernels against their plain versions on one binning (K3's),
     by the comparisons of probes/checks.py: every forward mode, pair2 (also
@@ -847,7 +958,7 @@ def check_probes(torch, name, st, chunk, fwd_bound, bwd_bound, headline=False):
 
     gw, gh = st["gw"], st["gh"]
     ranges, gid, payload = binning.tile_ranges_pack(
-        st["keys"], st["order"], st["pair_gid"], st["table"], gw * gh)
+        st["tiles"], st["order"], st["pair_gid"], st["table"], gw * gh)
     n_chunks = (ranges[:, 1] - ranges[:, 0] + chunk - 1) // chunk
     tag = f"[probe {name} chunk {chunk}]"
     failed = []
@@ -1222,7 +1333,7 @@ def drive_streaming(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd", "loss_fwd", "loss_bwd")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write")
     proj, tr = kitti_calibration(KITTI_W, KITTI_H)
 
     def frame_inputs(i):
@@ -1308,6 +1419,7 @@ def drive_streaming(torch, device, smi):
     if not all(math.isfinite(v) for v in losses):
         failed.append("stream:kitti-loss-not-finite")
     if (launches["tile_ranges_pack"] != steps["fresh"] + steps["export"]
+            or not launches["bin_count"] == launches["bin_write"] == launches["tile_ranges_pack"]
             or launches["blend_fwd_export"] != steps["export"]
             or launches["blend_fwd"] != steps["fresh"] + steps["cached"]
             or launches["blend_bwd"] != len(streamed + polish)
@@ -1371,7 +1483,7 @@ def drive_mono(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd", "loss_fwd", "loss_bwd")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write")
     settings = mono.mono_settings()
     intr = mono.room_intrinsics(ROOM_W, ROOM_H)
 
@@ -1454,6 +1566,7 @@ def drive_mono(torch, device, smi):
         failed.append("mono:large-correction-left-young-gaussians")
     n_bin = mapper.binning_counts
     if (launches["blend_bwd"] != steps or launches["tile_ranges_pack"] != n_bin["fresh"] + renders
+            or not launches["bin_count"] == launches["bin_write"] == launches["tile_ranges_pack"]
             or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0
             or launches["preprocess_bwd"] != steps or launches["loss_fwd"] != steps
             or launches["loss_bwd"] != steps):
@@ -1694,7 +1807,7 @@ def main() -> int:
     if model.count != n0:
         failed.append("main:count-changed")
     for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd", "loss_fwd",
-                 "loss_bwd"):
+                 "loss_bwd", "bin_count", "bin_write"):
         if launches[name] < WARMUP + TIMED:
             failed.append(f"main:{name}-launched-{launches[name]}")
     if launches["blend_fwd_export"] != 0:
@@ -1715,7 +1828,7 @@ def main() -> int:
     # ---- 5. kernel times at the headline shapes
     st = st_head
     num_tiles = st["gw"] * st["gh"]
-    a3 = (st["keys"], st["order"], st["pair_gid"], st["table"], num_tiles)
+    a3 = (st["tiles"], st["order"], st["pair_gid"], st["table"], num_tiles)
     ranges, gid, payload = binning.tile_ranges_pack(*a3)
     acc, lte, nc, ckpt = tile_blend.blend_fwd(ranges, payload, st["gw"], st["gh"])
     ct_a, ct_t = cotangents(torch, st, acc, lte)
@@ -1758,7 +1871,7 @@ def main() -> int:
         f"warp-steps; K1 (margin 1) {walked1}, {walked_live1} live, {steps1} warp-steps: walk ratio "
         f"{walk_ratio:.4f} in warp-steps, {walked4 / walked1:.4f} in pixel-pairs")
     bounds = {
-        "tile_ranges_pack": bound_ms(20 * pairs_live + st["table"].numel() * 4  # keys, order, pair_gid, table
+        "tile_ranges_pack": bound_ms(14 * pairs_live + st["table"].numel() * 4  # tiles, order, pair_gid, table
                                      + 8 * num_tiles + 40 * pairs_live),  # ranges, gid, payload
         "blend_fwd": bound_ms(fwd_bytes, fwd_ops, 2 * applied, sfu_rate),
         # ranges, the live buckets' payload and gid, accum, n_contrib, both
@@ -1819,6 +1932,8 @@ def main() -> int:
     failed += drive_preprocess(torch, device, launches, time_entry)
     # ---- 5c. the loss kernels at the cells' and the modes' image sizes
     failed += drive_loss(torch, device, launches, time_entry)
+    # ---- 5d. the binning's passes and route at the cells' map sizes
+    failed += drive_binning(torch, device, launches, time_entry)
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;

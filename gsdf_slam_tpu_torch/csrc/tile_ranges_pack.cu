@@ -12,8 +12,9 @@
 //   * payload[f][i] = table[gid_out[i]][f], the blend payload (mean x, y,
 //     conic a, b, c, opacity, rgb) gathered into one contiguous field-major
 //     [9, M] buffer, so that K1 and K2 read it coalesced.
+// The sorted pairs come as their int32 tile ids.
 //
-// Bound: memory. Per pair it reads two 8-byte keys, the order and the gid
+// Bound: memory. Per pair it reads the tile id, the order and the gid
 // and 36 bytes of table row, and writes 40 bytes: about 1M pairs move some
 // 0.1 GB, tens of microseconds at HBM rate. The table reads are random rows
 // but the table (P x 36 bytes, 14 MB at 400k Gaussians) stays in the 50 MB
@@ -25,7 +26,7 @@
 
 namespace {
 
-__global__ void tile_ranges_pack_kernel(const long long* __restrict__ keys,
+__global__ void tile_ranges_pack_kernel(const int* __restrict__ tiles,
                                         const long long* __restrict__ order,
                                         const int* __restrict__ pair_gid,
                                         const float* __restrict__ table, long long m,
@@ -33,11 +34,11 @@ __global__ void tile_ranges_pack_kernel(const long long* __restrict__ keys,
                                         float* __restrict__ payload) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const int tile = (int)(keys[i] >> 32);
+  const int tile = tiles[i];
   if (i == 0) {
     ranges[2 * tile] = 0;
   } else {
-    const int prev = (int)(keys[i - 1] >> 32);
+    const int prev = tiles[i - 1];
     if (tile != prev) {
       ranges[2 * prev + 1] = (int)i;
       ranges[2 * tile] = (int)i;
@@ -54,14 +55,15 @@ __global__ void tile_ranges_pack_kernel(const long long* __restrict__ keys,
 
 }  // namespace
 
-extern "C" int gsdf_tile_ranges_pack(const void* keys, const void* order, const void* pair_gid,
+// tiles [M] int32, sorted
+extern "C" int gsdf_tile_ranges_pack(const void* tiles, const void* order, const void* pair_gid,
                                      const void* table, long long m, void* ranges,
                                      void* gid_out, void* payload, void* stream) {
   if (m <= 0) return 0;
   const int threads = 256;
   const long long blocks = (m + threads - 1) / threads;
   tile_ranges_pack_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const long long*)keys, (const long long*)order, (const int*)pair_gid,
+      (const int*)tiles, (const long long*)order, (const int*)pair_gid,
       (const float*)table, m, (int*)ranges, (int*)gid_out, (float*)payload);
   return (int)cudaGetLastError();
 }

@@ -30,8 +30,9 @@ from .utils.observability import span
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # blend_probe.cu holds blend_probe_fwd (six modes), the two other blend
-# probes a file each; the four pair-table kernels share pair_table.cu
-SOURCES = ("tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
+# probes a file each; the four pair-table kernels share pair_table.cu, the
+# binning's two passes binning.cu
+SOURCES = ("binning.cu", "tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
            "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu", "preprocess.cu",
            "loss.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
@@ -45,7 +46,7 @@ LAUNCHES = {
     "tile_ranges_pack": 0, "blend_fwd": 0, "blend_bwd": 0, "blend_fwd_export": 0,
     "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
     "realign_copy": 0, "window_gather_rows": 0, "window_gather_cols": 0, "xpose_cumsum": 0,
-    "preprocess_fwd": 0, "preprocess_bwd": 0, "loss_fwd": 0, "loss_bwd": 0,
+    "preprocess_fwd": 0, "preprocess_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "bin_count": 0, "bin_write": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,7 +55,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
-    # keys, order, pair_gid, table, M, ranges, gid_out, payload, stream
+    # perm, P, tiles_touched, rect_min, rect_max, means2d, conics, log_op,
+    # grid_w, counts, totals, stream
+    "gsdf_bin_count": (_P, _L, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
+    # perm, P, tiles_touched, rect_min, rect_max, means2d, conics, log_op,
+    # grid_w, warp_end, tiles, pair_gid, stream
+    "gsdf_bin_write": (_P, _L, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # tiles, order, pair_gid, table, M, ranges, gid_out, payload, stream
     "gsdf_tile_ranges_pack": (_P, _P, _P, _P, _L, _P, _P, _P, _P),
     # ranges, payload, M, num_tiles, grid_w, accum, log_t_eff, n_contrib,
     # ckpt, stream

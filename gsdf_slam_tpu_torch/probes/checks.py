@@ -233,8 +233,8 @@ def log1p_live_mismatches() -> int:
 
 def depth_check(model, cam, cfg, depth, cov) -> dict:
     """`render_depth_state`'s outputs (`depth`, `cov`; K3 and K1 on a CUDA
-    model) against the same depth render binned and blended by the plain
-    versions of K3 and K1 on the same device: the blended depth's max abs
+    model) against the same depth render binned by the plain route and
+    blended by K1's plain version on the same device: the blended depth's max abs
     error over max |z| of the rendered Gaussians (`accum`), the coverage's
     (`coverage`), the depth's where both coverages exceed 0.5 over max |z|
     (`depth`), the covered pixels and max |z|. Launches no kernel."""
@@ -250,11 +250,9 @@ def depth_check(model, cam, cfg, depth, cov) -> dict:
         pre = preprocess(xyz, model.scaling_act(), model.rotation_act(), op, model.f_dc, model.f_rest, cam,
                          width=cfg.width, height=cfg.height, sh_degree=cfg.sh_degree,
                          colors_precomp=z[:, None].expand(-1, 3))
-        keys, order, pair_gid, _ = binning.expand_and_sort(pre.depths, pre.rect_min, pre.rect_max,
+        ranges, _, payload, _ = binning.bin_and_pack_plain(pre.depths, pre.rect_min, pre.rect_max,
                                                            pre.tiles_touched, pre.means2d, pre.conics, op,
-                                                           grid_w=gw)
-        table = binning.payload_table(pre.means2d, pre.conics, op, pre.colors)
-        ranges, _, payload = binning.tile_ranges_pack_plain(keys, order, pair_gid, table, gw * gh)
+                                                           pre.colors, grid_w=gw, grid_h=gh)
         acc, lte, _, _ = blend_fwd_plain(ranges, payload, gw, gh)
         img, final_t = assemble_image(acc, lte, torch.zeros(3, device=xyz.device), grid_w=gw, grid_h=gh,
                                       width=cfg.width, height=cfg.height)
@@ -517,4 +515,48 @@ def loss_check(rendered, gt, mask, lambda_dssim: float = 0.2) -> dict:
         "repeat_bit_equal": bit_equal(loss, loss2) and bit_equal(grad, grad2) and bit_equal(dmaps, dmaps2),
     }
     res["ok"] = res["loss_err"] <= LOSS_ATOL and res["grad_err"] <= BWD_SMALL and res["repeat_bit_equal"]
+    return res
+
+
+def binning_check(depths, rect_min, rect_max, tiles_touched, means2d, conics, opacities, colors, *, grid_w: int,
+                  grid_h: int) -> dict:
+    """The card's binning route (`bin_and_pack_depth_first`: `bin_count`,
+    `bin_write`, the tile sort, K3) against the plain route on the same
+    tensors: ranges, gid, payload and total_pairs bit-equal; and
+    `bin_count` and `bin_write` alone against their plain versions (the
+    counts and totals equal, the tile ids and Gaussians bit-equal). Returns
+    the comparisons, each pass's largest absolute difference from its plain
+    version (`count_err`, `write_err`; inf where the shapes differ), the
+    pair counts and "ok"."""
+    from ..ops import binning
+
+    a = (depths, rect_min, rect_max, tiles_touched, means2d, conics, opacities, colors)
+    got = binning.bin_and_pack_depth_first(*a, grid_w=grid_w, grid_h=grid_h)
+    want = binning.bin_and_pack_plain(*a, grid_w=grid_w, grid_h=grid_h)
+    gauss = (binning.depth_order(depths), tiles_touched, rect_min, rect_max, means2d, conics,
+             torch.log(opacities * 255.0))
+    counts, totals = binning.bin_count(*gauss, grid_w=grid_w)
+    counts_p, totals_p = binning.bin_count_plain(*gauss, grid_w=grid_w)
+    kept = int(totals_p[0])
+    w = (*gauss, torch.cumsum(counts_p, 0), kept)
+    tiles, pair_gid = binning.bin_write(*w, grid_w=grid_w)
+    tiles_p, pair_gid_p = binning.bin_write_plain(*w, grid_w=grid_w)
+    torch.cuda.synchronize()
+    same = lambda x, y: x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)  # integers
+
+    def err(*pairs):  # the largest |x - y| over integer pairs
+        if any(x.shape != y.shape for x, y in pairs):
+            return float("inf")
+        return max((float((x.long() - y.long()).abs().max()) for x, y in pairs if x.numel()), default=0.0)
+
+    res = {
+        "pairs": int(want.gid.shape[0]), "total_pairs": want.total_pairs, "tiles": grid_w * grid_h,
+        "ranges": same(got.ranges, want.ranges), "gid": same(got.gid, want.gid),
+        "payload": bit_equal(got.payload, want.payload), "total": got.total_pairs == want.total_pairs,
+        "counts": same(counts, counts_p), "totals": same(totals, totals_p),
+        "tile_ids": same(tiles, tiles_p), "pair_gid": same(pair_gid, pair_gid_p),
+    }
+    res["ok"] = all(v for k, v in res.items() if isinstance(v, bool))
+    res["count_err"] = err((counts, counts_p), (totals, totals_p))
+    res["write_err"] = err((tiles, tiles_p), (pair_gid, pair_gid_p))
     return res

@@ -6,6 +6,9 @@ a seed.
   identity camera at 1200x680: Gaussians on the walls of an 8 m box seen
   from its centre, opacity 0.5, scales from the exact 3-NN times the
   pair-count calibration.
+- The street (`street_scene`): the camera inside a box of Gaussians at
+  KITTI's 1226x370, scaled so that a map of the kitti_lidar cells' size
+  bins about as many pairs as their steps do.
 - The opaque wall (32x32, 128 Gaussians): every tile's pixels pass
   T = 1e-4 after a few pairs, so the chunk-granular exit of the blend
   probes fires, which the 64x64 test scene never makes it do.
@@ -92,6 +95,38 @@ def kitti_camera(device) -> CameraMatrices:
     fovx = 2 * np.arctan(KITTI_WIDTH / (2 * KITTI_FOCAL))
     fovy = 2 * np.arctan(KITTI_HEIGHT / (2 * KITTI_FOCAL))
     return CameraMatrices.from_pose(np.array([1.0, 0, 0, 0]), np.zeros(3), fovx, fovy, device=device)
+
+
+# the binning checks' street scenes (street_scene): each size's map, the
+# pre-cull pairs of the kitti_lidar cell's fresh step (~5.4M in the polish,
+# ~7.5M in the drive) and the scale multiplier that bins about that many
+# there, calibrated at 20,000 Gaussians (seeds 0-2 bin 5.40-5.71M and
+# 7.50-8.00M; about 0.23M and 0.71M Gaussians visible)
+STREET_SIZES = {"polish": (630_000, 5_400_000, 0.1913), "drive": (2_000_000, 7_500_000, 0.1129)}
+STREET_BOX = (20.0, 2.0, 40.0)  # half-extents in x, y, z (m), the camera at the centre
+
+
+def street_scene(device, n: int, scale_mult: float, seed: int = 0) -> tuple[torch.Tensor, ...]:
+    """The camera inside the cloud, as in the cells' steps: `n` Gaussians
+    uniform in a 40 x 4 x 80 m box (STREET_BOX) around the identity pose,
+    so that about a third of them lie in KITTI's frustum and some lie close
+    enough to span the grid; anisotropic log-normal scales (sigma 0.5)
+    times `scale_mult` m, uniform rotations, opacity uniform in [0.02, 1).
+    Returns the preprocess's inputs (means, scales, quats, opacities, dc,
+    sh_rest) on `device`, sh_rest 0.1 x standard normal noise."""
+    rng = np.random.default_rng(seed)
+    half = np.array(STREET_BOX, np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    arrays = (
+        rng.uniform(-half, half, (n, 3)).astype(np.float32),
+        (scale_mult * np.exp(rng.normal(0.0, 0.5, (n, 3)))).astype(np.float32),
+        quats / np.linalg.norm(quats, axis=1, keepdims=True),
+        rng.uniform(0.02, 1.0, n).astype(np.float32),
+        rng.uniform(-0.5, 0.5, (n, 1, 3)).astype(np.float32),
+    )
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rest = 0.1 * torch.randn((n, 15, 3), generator=gen, device=device)
+    return (*(torch.from_numpy(a).to(device) for a in arrays), rest)
 
 
 def preprocess_args(model: GaussianModel, seed: int = 0) -> tuple[torch.Tensor, ...]:

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import jax_args, jax_camera, scene_arrays
+from torch_port_helpers import BINNING_CASES, crafted_binning, jax_args, jax_camera, scene_arrays
 
 from gsdf_slam_tpu.ops import binning as jbin
 from gsdf_slam_tpu.ops import pallas_binning as jpb
@@ -110,3 +110,72 @@ def test_tile_opacity_keep_matches():
     got = binning.tile_opacity_keep(*(torch.from_numpy(v) for v in (mx, my, a, b, c, op, tx, ty)))
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0 < want.sum() < n
+
+
+def _binning_tensors(arrays):
+    return [torch.from_numpy(arrays[k]) for k in ("depths", "rect_min", "rect_max", "tiles_touched", "means2d",
+                                                   "conics", "opacities", "colors")]
+
+
+def _assert_same_binning(got, want):
+    assert got.total_pairs == want.total_pairs
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["parity", "saturating"])
+def test_depth_first_route_matches_plain_route(name):
+    """The card's route, each kernel taking its plain version on the CPU:
+    the Gaussians sorted by depth bits, expanded in that order, the pairs
+    sorted by tile id alone, gives the plain route's Binned bit for bit."""
+    pre, opac, want = _binned_both(_scenes()[name])
+    t = lambda a: torch.from_numpy(np.asarray(a).copy())
+    got = binning.bin_and_pack_depth_first(
+        t(pre.depths), t(pre.rect_min), t(pre.rect_max), t(pre.tiles_touched), t(pre.means2d), t(pre.conics),
+        t(opac), t(pre.colors), grid_w=GRID, grid_h=GRID,
+    )
+    assert want.gid.shape[0] > 0
+    _assert_same_binning(got, want)
+
+
+@pytest.mark.parametrize("grid", [(77, 24), (200, 203)])
+@pytest.mark.parametrize("case", BINNING_CASES)
+def test_depth_first_route_on_crafted_rows(case, grid):
+    """torch_port_helpers.crafted_binning at KITTI's grid and past 32,767
+    tiles (tile ids past 16 bits)."""
+    arrays, (gw, gh) = crafted_binning(case, grid=grid)
+    a = _binning_tensors(arrays)
+    want = binning.bin_and_pack_plain(*a, grid_w=gw, grid_h=gh)
+    got = binning.bin_and_pack_depth_first(*a, grid_w=gw, grid_h=gh)
+    _assert_same_binning(got, want)
+    assert (want.gid.shape[0] > 1848) if case == "crafted" else (want.gid.shape[0] == 0)
+    assert (want.total_pairs > 0) == (case != "none_visible")
+
+
+def test_depth_order_orders_the_bits_unsigned():
+    """Ties keep their index order; -0.0 and negative depths, whose sign bit
+    is set, come after every positive one, as in the plain route's 64-bit
+    key."""
+    d = torch.tensor([3.0, -1.0, 2.0, -0.0, 2.0, 0.0, float("inf"), -2.0], dtype=torch.float32)
+    want = torch.argsort(d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, stable=True)
+    got = binning.depth_order(d)
+    assert torch.equal(got, want)
+    assert got.tolist() == [5, 2, 4, 0, 6, 3, 1, 7]
+
+
+def test_bin_count_and_write_plain_agree():
+    """Each 32 Gaussians' kept count sums to the kept total, and the written
+    pairs run through the depth order in expansion order."""
+    arrays, (gw, gh) = crafted_binning("crafted")
+    depths, rmin, rmax, tt, m2, con, opac, _ = _binning_tensors(arrays)
+    gauss = (binning.depth_order(depths), tt, rmin, rmax, m2, con, torch.log(opac * 255.0))
+    counts, totals = binning.bin_count_plain(*gauss, grid_w=gw)
+    kept, total = totals.tolist()
+    assert counts.dtype == torch.int32 and counts.shape[0] == (depths.shape[0] + 31) // 32
+    assert int(counts.sum()) == kept and total == int(tt.sum())
+    tiles, pair_gid = binning.bin_write_plain(*gauss, torch.cumsum(counts, 0), kept, grid_w=gw)
+    assert tiles.dtype == torch.int32 and pair_gid.dtype == torch.int32 and tiles.shape[0] == kept
+    rank = torch.empty_like(gauss[0])
+    rank[gauss[0]] = torch.arange(depths.shape[0])
+    r = rank[pair_gid.long()]
+    assert bool((r[1:] >= r[:-1]).all())

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import (
-    EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, crafted_preprocess_rows, export_binning, new_points,
+    BINNING_CASES, EXPORT_BINNINGS, FOV, POSE, WINDOW_EDGE_CASES, crafted_binning, crafted_preprocess_rows,
+    export_binning, new_points,
     pair2_binning, scene_arrays, surgery_extent, surgery_model, synthetic_binning, torch_args, window_edge_case,
 )
 
@@ -27,8 +28,8 @@ from gsdf_slam_tpu_torch.data import colorize_frame
 from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 from gsdf_slam_tpu_torch.probes import checks, expand_probe, microbench
 from gsdf_slam_tpu_torch.probes.scene import (
-    HEIGHT, KITTI_HEIGHT, KITTI_WIDTH, PREPROCESS_SIZES, WALL_SIZE, WIDTH, headline_camera, headline_scene,
-    kitti_camera, preprocess_args, wall_scene,
+    HEIGHT, KITTI_HEIGHT, KITTI_WIDTH, PREPROCESS_SIZES, STREET_SIZES, WALL_SIZE, WIDTH, headline_camera,
+    headline_scene, kitti_camera, preprocess_args, street_scene, wall_scene,
 )
 from gsdf_slam_tpu_torch.probes.synthetic_outdoor import drive_pose, kitti_calibration, lidar_scan, raycast_outdoor
 from gsdf_slam_tpu_torch.probes.synthetic_room import make_sequence
@@ -57,13 +58,13 @@ def staged(dev):
         pre.depths, pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d.detach(),
         pre.conics.detach(), args[3], grid_w=4)
     table = binning.payload_table(pre.means2d.detach(), pre.conics.detach(), args[3], pre.colors.detach())
-    return keys, order, pair_gid, table, args[0].shape[0]
+    return (keys >> 32).to(torch.int32), order, pair_gid, table, args[0].shape[0]
 
 
 def test_k3_bit_equal(staged):
-    keys, order, pair_gid, table, _ = staged
-    got = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
-    want = binning.tile_ranges_pack_plain(keys, order, pair_gid, table, 16)
+    tiles, order, pair_gid, table, _ = staged
+    got = binning.tile_ranges_pack(tiles, order, pair_gid, table, 16)
+    want = binning.tile_ranges_pack_plain(tiles, order, pair_gid, table, 16)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -106,8 +107,8 @@ def _blend_matches_plain(ranges, payload, gid, p, g):
 
 
 def test_k1_k2_match_plain(staged):
-    keys, order, pair_gid, table, p = staged
-    ranges, gid, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
+    tiles, order, pair_gid, table, p = staged
+    ranges, gid, payload = binning.tile_ranges_pack(tiles, order, pair_gid, table, 16)
     _blend_matches_plain(ranges, payload, gid, p, 4)
 
 
@@ -145,8 +146,8 @@ def _k4_binning(name, dev, staged):
     the wall, and the one-tile binnings of EXPORT_BINNINGS (the phase
     switch across the batch barrier; the block's exit vote)."""
     if name == "staged64":
-        keys, order, pair_gid, table, _ = staged
-        ranges, _, payload = binning.tile_ranges_pack(keys, order, pair_gid, table, 16)
+        tiles, order, pair_gid, table, _ = staged
+        ranges, _, payload = binning.tile_ranges_pack(tiles, order, pair_gid, table, 16)
         return ranges, payload, 4, 4
     if name == "wall":
         b, _ = _wall_binned(dev)
@@ -199,10 +200,78 @@ def test_render_gradients_match_cpu(dev):
     (img_c, g_c, n_c), (img_g, g_g, n_g) = outs["cpu"], outs[str(dev)]
     assert n_c == dict.fromkeys(kernels.LAUNCHES, 0)
     assert n_g == {**dict.fromkeys(kernels.LAUNCHES, 0), "tile_ranges_pack": 1, "blend_fwd": 1, "blend_bwd": 1,
-                   "preprocess_fwd": 1, "preprocess_bwd": 1}
+                   "preprocess_fwd": 1, "preprocess_bwd": 1, "bin_count": 1, "bin_write": 1}
     assert float((img_c - img_g).abs().max()) <= 5e-6
     for a, b in zip(g_c, g_g):
         assert float((a - b).abs().max()) / max(float(a.abs().max()), 1e-4) <= 2e-5
+
+
+# ---- the binning's route on the card (bin_count, bin_write, the tile sort,
+# K3) against the plain route (probes/checks.py::binning_check)
+def _binning_inputs(pre, opacities):
+    return (pre.depths.detach(), pre.rect_min, pre.rect_max, pre.tiles_touched, pre.means2d.detach(),
+            pre.conics.detach(), opacities, pre.colors.detach())
+
+
+@pytest.mark.parametrize("scene", ["headline", "polish", "drive"])
+def test_binning_route_bit_equal_at_the_cells_sizes(dev, scene):
+    """The headline (400k Gaussians at 1200x680, 3,225 tiles) and the cells'
+    loads (probes/scene.py::street_scene: 0.63M and 2.0M Gaussians at
+    KITTI's 1226x370, 1,848 tiles, binning about the 5.4M and 7.5M pre-cull
+    pairs of the polish's and the drive's steps): `Binned` bit-equal to the
+    plain route's, and each pass to its plain version."""
+    if scene == "headline":
+        args, cam, (w, h) = preprocess_args(headline_scene(dev)), headline_camera(dev), (WIDTH, HEIGHT)
+        least = 100_000
+    else:
+        n, pairs, mult = STREET_SIZES[scene]
+        args, cam, (w, h) = street_scene(dev, n, mult), kitti_camera(dev), (KITTI_WIDTH, KITTI_HEIGHT)
+        least = int(0.9 * pairs)
+    with torch.no_grad():
+        pre = preprocess(*args, cam, width=w, height=h, sh_degree=3)
+    gw, gh = projection.tile_grid(w, h)
+    res = checks.binning_check(*_binning_inputs(pre, args[3]), grid_w=gw, grid_h=gh)
+    assert res["ok"] and res["total_pairs"] >= least, res
+
+
+@pytest.mark.parametrize("grid", [(77, 24), (200, 203)])
+@pytest.mark.parametrize("case", BINNING_CASES)
+def test_binning_route_bit_equal_on_crafted_rows(dev, case, grid):
+    """tests/torch_port_helpers.py::crafted_binning at KITTI's grid and past
+    32,767 tiles (3,200x2,600 px, 40,600 tiles: tile ids past 16 bits):
+    rects spanning the grid, one tile wide or tall, of zero width; means on
+    tile edges; opacity at 1/255 and one ulp below; equal and negative depth
+    bits; a 0 / 0 in the cull; no visible Gaussian; every pair culled."""
+    arrays, (gw, gh) = crafted_binning(case, grid=grid)
+    a = [torch.from_numpy(arrays[k]).to(dev) for k in ("depths", "rect_min", "rect_max", "tiles_touched", "means2d",
+                                                        "conics", "opacities", "colors")]
+    res = checks.binning_check(*a, grid_w=gw, grid_h=gh)
+    assert res["ok"], res
+    assert (res["pairs"] > 1848) if case == "crafted" else (res["pairs"] == 0)
+
+
+def test_binning_kernels_launch_once_a_binning(dev):
+    """bin_count and bin_write launch once on every fresh and export step,
+    as K3 does, and never on a cached one."""
+    model, adam = copy_state(*surgery_model("64x64"), dev)
+    cam = _camera(dev)
+    cfg = RasterizeConfig(64, 64)
+    gt = torch.rand((64, 64, 3), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    bg = torch.zeros(3, device=dev)
+    seen = []
+    cache = None
+    for it, kind in enumerate(("fresh", "export", "cached", "fresh")):
+        kernels.reset_launch_counts()
+        if kind == "export":
+            _, cache = train_step(model, adam, cam, gt, None, bg, it, 1.0, cfg, OptimizationParams(),
+                                  export_binning_cache=True)
+        else:
+            train_step(model, adam, cam, gt, None, bg, it, 1.0, cfg, OptimizationParams(),
+                       binning_cache=cache if kind == "cached" else None)
+        torch.cuda.synchronize()
+        seen.append((kernels.LAUNCHES["bin_count"], kernels.LAUNCHES["bin_write"],
+                     kernels.LAUNCHES["tile_ranges_pack"]))
+    assert seen == [(1, 1, 1), (1, 1, 1), (0, 0, 0), (1, 1, 1)], seen
 
 
 # ------------------------------------------------------------------ probes
@@ -612,7 +681,7 @@ def test_surgery_on_the_card_matches_the_cpu(dev, size, kind):
     assert np.isfinite(float(m.loss)) and model.count == n == m.count
     assert all(kernels.LAUNCHES[k] == 1
                for k in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd", "loss_fwd",
-                         "loss_bwd"))
+                         "loss_bwd", "bin_count", "bin_write"))
     assert all(bool(torch.isfinite(p).all()) for p in model.params().values())
 
 
@@ -675,6 +744,7 @@ def test_short_stream_on_the_card_matches_the_cpu(dev):
     assert n.get("export", 0) > 0 and n.get("cached", 0) > 0, n
     assert kernels.LAUNCHES["blend_fwd_export"] == n["export"]
     assert kernels.LAUNCHES["tile_ranges_pack"] == n["export"] + n.get("fresh", 0)
+    assert kernels.LAUNCHES["bin_count"] == kernels.LAUNCHES["bin_write"] == kernels.LAUNCHES["tile_ranges_pack"]
     assert kernels.LAUNCHES["blend_fwd"] == n["cached"] + n.get("fresh", 0)
     assert kernels.LAUNCHES["blend_bwd"] == len(got)
 

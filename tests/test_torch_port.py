@@ -92,12 +92,14 @@ def no_kernel_library(monkeypatch, tmp_path):
     "tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export",
     "blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather",
     "realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum", "preprocess_fwd", "preprocess_bwd",
+    "bin_count", "bin_write",
 ])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
         raise AssertionError("fell back to the plain version")
 
-    monkeypatch.setattr(binning, "tile_ranges_pack_plain", plain_called)
+    for name in ("tile_ranges_pack_plain", "bin_count_plain", "bin_write_plain"):
+        monkeypatch.setattr(binning, name, plain_called)
     monkeypatch.setattr(tile_blend, "blend_fwd_plain", plain_called)
     monkeypatch.setattr(tile_blend, "blend_bwd_plain", plain_called)
     for name in ("blend_probe_fwd_plain", "blend_probe_fwd_pair2_plain", "blend_probe_bwd_plain",
@@ -110,9 +112,13 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
     z = lambda *s, dt=torch.float32: claims_cuda(torch.zeros(s, dtype=dt))
     cam = CameraMatrices(z(4, 4), z(4, 4), z(3), z(), z())
     st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
+    gauss = (z(5, dt=torch.int64), z(5, dt=torch.int32), z(5, 2, dt=torch.int32), z(5, 2, dt=torch.int32), z(5, 2),
+             z(5, 3), z(5))
     calls = {
         "tile_ranges_pack": lambda: binning.tile_ranges_pack(
-            z(4, dt=torch.int64), z(4, dt=torch.int64), z(4, dt=torch.int32), z(3, 9), 16),
+            z(4, dt=torch.int32), z(4, dt=torch.int64), z(4, dt=torch.int32), z(3, 9), 16),
+        "bin_count": lambda: binning.bin_count(*gauss, grid_w=4),
+        "bin_write": lambda: binning.bin_write(*gauss, z(1, dt=torch.int64), 3, grid_w=4),
         "blend_fwd": lambda: tile_blend.blend_fwd(z(16, 2, dt=torch.int32), z(9, 4), 4, 4),
         "blend_fwd_export": lambda: tile_blend.blend_fwd_export(z(16, 2, dt=torch.int32), z(9, 4), 4, 4, 10.0),
         "blend_bwd": lambda: tile_blend.blend_bwd(

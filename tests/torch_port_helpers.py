@@ -126,6 +126,85 @@ def claims_cuda(t):
     return torch.Tensor._make_subclass(ClaimsCuda, t)
 
 
+BINNING_CASES = ("crafted", "none_visible", "all_culled")
+
+
+def crafted_binning(case, grid=(77, 24), seed=0):
+    """The binning's inputs (depths, rect_min, rect_max, tiles_touched,
+    means2d, conics, opacities, colors) as numpy arrays for a grid of
+    `grid` tiles (KITTI's 1226x370 by default), and the grid. "crafted":
+    rects spanning the whole grid (a wide and a tight Gaussian); rects one
+    tile wide or tall, and one of zero width with tiles (the rw clamp);
+    means exactly on tile edges (the D1 fix); opacity exactly 1/255 and one
+    ulp below; Gaussians with equal depth bits and one ulp apart, and
+    visible ones at depths -0.0 and -1.0 (the bits order unsigned); a
+    degenerate conic whose cull divides 0 by 0 (torch.clamp keeps the NaN);
+    then random rows, some with no tiles. "none_visible": no Gaussian
+    touches a tile (M = 0, no pair); "all_culled": every pair culled (M = 0
+    after pairs)."""
+    gw, gh = grid
+    rng = np.random.default_rng(seed)
+    rows = []  # (mx, my, a, b, c, opacity, depth, rmin x, rmin y, rmax x, rmax y, tiles or None)
+
+    def add(mx, my, abc, op, depth, rect, tiles=None):
+        rows.append((mx, my, *abc, op, depth, *rect, tiles))
+
+    if case == "crafted":
+        cx, cy = 8.0 * gw, 8.0 * gh
+        add(cx, cy, (1 / 300.0 ** 2, 0.0, 1 / 200.0 ** 2), 0.9, 5.0, (0, 0, gw, gh))
+        add(cx + 3.5, cy - 7.25, (1 / 4.0 ** 2, 0.01, 1 / 6.0 ** 2), 0.8, 6.0, (0, 0, gw, gh))
+        add(168.0, 100.0, (0.05, 0.0, 0.002), 0.7, 3.0, (10, 2, 11, 14))  # one tile wide
+        add(100.0, 168.0, (0.002, 0.0, 0.05), 0.7, 3.5, (2, 10, 17, 11))  # one tile tall
+        add(40.0, 40.0, (0.01, 0.0, 0.01), 0.7, 4.0, (2, 1, 2, 5), tiles=3)  # zero wide, three tiles
+        for k, (mx, my) in enumerate([(32.0, 48.0), (47.0, 63.0), (64.0, 31.0), (16.0 * 30, 16.0 * 10 + 15.0)]):
+            tx, ty = int(mx) // 16, int(my) // 16
+            add(mx, my, (0.02, 0.005 * k, 0.03), 0.6, 7.0 + k, (max(tx - 1, 0), max(ty - 1, 0), tx + 2, ty + 2))
+        edge = np.float32(1.0 / 255.0)
+        for op in (edge, np.nextafter(edge, np.float32(0.0))):
+            add(200.0, 120.0, (0.1, 0.0, 0.1), op, 2.0, (11, 6, 14, 9))
+            add(216.0, 136.0, (0.1, 0.0, 0.1), op, 2.5, (12, 7, 15, 10))
+        depth = np.float32(9.0)
+        for k in range(5):
+            add(300.0 + 5 * k, 150.0, (0.01, 0.0, 0.01), 0.5, depth, (17, 8, 21, 11))
+        add(310.0, 152.0, (0.01, 0.0, 0.01), 0.5, np.nextafter(depth, np.float32(10.0)), (17, 8, 21, 11))
+        add(305.0, 148.0, (0.01, 0.0, 0.01), 0.5, np.nextafter(depth, np.float32(0.0)), (17, 8, 21, 11))
+        add(305.0, 151.0, (0.01, 0.0, 0.01), 0.5, -0.0, (17, 8, 21, 11))
+        add(306.0, 149.0, (0.01, 0.0, 0.01), 0.5, -1.0, (17, 8, 21, 11))
+        add(500.0, 200.0, (0.0, 0.0, 1.0), 0.9, 8.0, (29, 10, 34, 15))  # 0 / 0 in the cull
+        n = 400
+        mx = rng.uniform(-20, 16 * gw + 20, n)
+        my = rng.uniform(-20, 16 * gh + 20, n)
+        for i in range(n):
+            sx, sy = rng.uniform(1.0, 40.0, 2)
+            a, c = 1 / sx ** 2, 1 / sy ** 2
+            b = rng.uniform(-0.9, 0.9) * np.sqrt(a * c)
+            tx, ty = int(np.clip(mx[i] // 16, 0, gw - 1)), int(np.clip(my[i] // 16, 0, gh - 1))
+            rx, ry = rng.integers(0, 7, 2)
+            rect = (max(tx - rx // 2, 0), max(ty - ry // 2, 0), min(tx + (rx + 1) // 2, gw), min(ty + (ry + 1) // 2,
+                                                                                                gh))
+            depth = rng.choice([rng.uniform(0.3, 60.0), 12.5])  # many ties at 12.5
+            add(mx[i], my[i], (a, b, c), rng.uniform(0.002, 1.0), depth, rect)
+    else:
+        for i in range(40):
+            op = 0.5 if case == "none_visible" else 0.002  # below 1/255: every pair culled
+            rect = (i % gw, i % gh, i % gw + 2, i % gh + 2) if case == "all_culled" else (3, 3, 3, 5)
+            add(16.0 * (i % gw) + 3.0, 16.0 * (i % gh) + 5.0, (0.1, 0.0, 0.1), op, 1.0 + i, rect)
+    r = list(zip(*rows))
+    f = lambda k: np.asarray(r[k], np.float32)
+    rect_min = np.stack([r[7], r[8]], -1).astype(np.int32)
+    rect_max = np.stack([r[9], r[10]], -1).astype(np.int32)
+    area = (rect_max[:, 0] - rect_min[:, 0]) * (rect_max[:, 1] - rect_min[:, 1])
+    tiles = np.array([t if t is not None else max(ar, 0) for t, ar in zip(r[11], area)], np.int32)
+    if case == "crafted":
+        tiles[-40:] = 0  # some random rows touch no tile
+    p = len(rows)
+    return dict(
+        depths=f(6), rect_min=rect_min, rect_max=rect_max, tiles_touched=tiles,
+        means2d=np.stack([f(0), f(1)], -1), conics=np.stack([f(2), f(3), f(4)], -1), opacities=f(5),
+        colors=rng.uniform(0, 1, (p, 3)).astype(np.float32),
+    ), grid
+
+
 def assert_scaled_close(a, b, atol, name=""):
     """|a - b| / max|a| <= atol (the gradient bar of tests/test_pallas_blend.py)."""
     a = np.asarray(a, np.float64)
