@@ -52,6 +52,13 @@ Phases, each printing its own lines:
    time beside its plain version's and its bound on bytes, the card's
    route's device time beside torch.sort of the plain route's 64-bit keys,
    and both routes whole on CUDA events;
+5e. the Adam kernel (adam_step) at the cells' map sizes (street scenes
+   with the gradients one step's render, loss and autograd backward
+   return) and at ragged counts, misaligned too, against the plain version
+   on the card, bit-equal (probes/checks.py::adam_check), its span free of
+   blocking calls over fresh, export and cached steps
+   (checks.adam_span_check); then its time at the cells' sizes beside the
+   plain version's and its bound on bytes, in turns;
 6. probes: each probe kernel (blend_probe_fwd in its six modes,
    blend_probe_fwd_pair2, blend_probe_bwd, expand_gather) against its plain
    version on the 64x64 scene and on the opaque wall (32x32, where the
@@ -221,6 +228,9 @@ KERNELS = {
     # cull and the sort to XLA ops
     "bin_count": dict(source="gsdf_slam_tpu_torch/csrc/binning.cu", replaces="none"),
     "bin_write": dict(source="gsdf_slam_tpu_torch/csrc/binning.cu", replaces="none"),
+    # phase 5e: no Pallas kernel; the JAX package leaves Adam to XLA's
+    # fusion
+    "adam_step": dict(source="gsdf_slam_tpu_torch/csrc/adam.cu", replaces="none"),
 }
 PROBES = ("blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather")
 PAIR_TABLE = ("realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum")
@@ -281,6 +291,11 @@ ROOM_FRAMES, ROOM_W, ROOM_H = 60, 1200, 680
 # room's, the mono mode's and a tall one
 LOSS_SIZES = ((1226, 370), (1200, 680), (640, 480), (185, 1226))
 SHORT_FRAMES, SHORT_SIZE, SHORT_REBIN = 6, 64, 4
+# phase 5e: the Adam checks' ragged Gaussian counts, and each group's row
+# shape; the step count the checks start from
+ADAM_RAGGED = (1, 3, 1_000_003)
+ADAM_ROWS = {"xyz": (3,), "f_dc": (1, 3), "f_rest": (15, 3), "opacity": (1,), "scaling": (3,), "rotation": (4,)}
+ADAM_STEP = 776
 # phase 10: the mono stream's keyframes (the room at ROOM_W x ROOM_H), its
 # polish iterations and tracker points a keyframe; a small correction after
 # every SMALL_EVERY-th keyframe's step, of the keyframe SMALL_BACK before
@@ -676,7 +691,7 @@ def drive_cadence(torch, model, adam, cam, gt, bg, cfg, opt, smi):
     turn_median = []
     want = {**dict.fromkeys(kernels.LAUNCHES, 0), "blend_fwd_export": 1, "tile_ranges_pack": 1,
             "bin_count": 1, "bin_write": 1, "blend_fwd": CACHED_STEPS, "blend_bwd": n, "preprocess_fwd": n, "preprocess_bwd": n,
-            "loss_fwd": n, "loss_bwd": n}
+            "loss_fwd": n, "loss_bwd": n, "adam_step": n}
     for turn, kind in enumerate(("fresh", "cadence", "cadence", "fresh")):
         m, a = copy_state(model, adam)
         if kind == "fresh":
@@ -842,6 +857,67 @@ def drive_loss(torch, device, launches, time_entry) -> list[str]:
 
     log(f"[loss] the torch-op loss and its autograd backward (the former step's): {cuda_ms(torch_ops, 3):.4f} ms "
         f"on CUDA events at {shapes}")
+    return failed
+
+
+def drive_adam(torch, device, launches, time_entry) -> list[str]:
+    """Phase 5e: adam_step against the plain version on the card, fed the
+    same host scalars, at the ragged counts (aligned and not) and at the
+    cells' map sizes (probes/checks.py::adam_check), and its span over
+    fresh, export and cached steps on the small scene
+    (checks.adam_span_check); then timed at each cell's size beside the
+    plain version (time_entry), with the bound on the bytes it must move,
+    28 a parameter (p, g, m and v read; p, m and v written). Returns the
+    failed checks."""
+    from gsdf_slam_tpu_torch.config import OptimizationParams
+    from gsdf_slam_tpu_torch.models import AdamState, GaussianModel, optimizer
+    from gsdf_slam_tpu_torch.ops import RasterizeConfig
+    from gsdf_slam_tpu_torch.ops.transforms import inverse_sigmoid
+    from gsdf_slam_tpu_torch.probes import checks
+    from gsdf_slam_tpu_torch.probes.timing import bound_ms
+
+    failed = []
+    opt = OptimizationParams()
+    lrs = optimizer.group_lrs(opt, 1.0, ADAM_STEP)
+    for n in ADAM_RAGGED:
+        for misaligned in (False, True):
+            shapes = {k: (n, *rows) for k, rows in ADAM_ROWS.items()}
+            res = checks.adam_check(*checks.adam_inputs(shapes, device, seed=n, step=ADAM_STEP,
+                                                        misaligned=misaligned), lrs)
+            tag = f"{n}{' misaligned' if misaligned else ''}"
+            log(f"[adam] {tag}: {json.dumps(res)}")
+            if not res["ok"]:
+                failed.append(f"adam@{tag}")
+    (means, scales, quats, opac, dc, rest), cam = small_scene(torch, device)
+    model = GaussianModel({"xyz": means, "f_dc": dc, "f_rest": rest, "opacity": inverse_sigmoid(opac)[:, None],
+                           "scaling": torch.log(scales), "rotation": quats})
+    gt = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (64, 64, 3)).astype(np.float32)).to(device)
+    res = checks.adam_span_check(model, AdamState.init(model.params()), cam, gt, torch.zeros(3, device=device),
+                                 RasterizeConfig(height=64, width=64), opt)
+    log(f"[adam] span step.adam under set_sync_debug_mode('error'), fresh / export / cached steps at 64x64: "
+        f"{json.dumps(res)}")
+    if not res["ok"]:
+        failed.append("adam:span-blocks-or-launches-not-one-a-step")
+    for size in ("polish", "drive"):
+        params, grads, state = checks.adam_street_inputs(device, size, step=ADAM_STEP)
+        res = checks.adam_check(params, grads, state, lrs)
+        log(f"[adam] {size} street scene: {json.dumps(res)}")
+        if not res["ok"] or not all(layout[2] for layout in res["grad_layouts"].values()):
+            failed.append(f"adam@{size}")
+        bc1, _, sqrt_bc2 = optimizer.bias_corrections(state.step + 1)
+        lr_bc1 = {k: np.float32(lrs[k]) / bc1 for k in params}
+        copies = {k: (p.clone(), state.m[k].clone(), state.v[k].clone()) for k, p in params.items()}
+
+        def plain():
+            for k, (p, m, v) in copies.items():
+                optimizer.adam_step_plain(p, grads[k], m, v, float(lr_bc1[k]), float(sqrt_bc2))
+
+        elements = sum(p.numel() for p in params.values())
+        time_entry("adam_step", lambda: optimizer.adam_step_kernel(params, grads, state.m, state.v, lr_bc1, sqrt_bc2),
+                   plain, f"{params['xyz'].shape[0]} Gaussians, {elements} parameters in 6 groups",
+                   launches["adam_step"], 0.0 if res["ok"] else float("inf"), bound_ms(28 * elements))
+        del params, grads, state, copies
+        torch.cuda.empty_cache()
     return failed
 
 
@@ -1333,7 +1409,7 @@ def drive_streaming(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write", "adam_step")
     proj, tr = kitti_calibration(KITTI_W, KITTI_H)
 
     def frame_inputs(i):
@@ -1425,7 +1501,8 @@ def drive_streaming(torch, device, smi):
             or launches["blend_bwd"] != len(streamed + polish)
             or launches["preprocess_fwd"] != len(streamed + polish)
             or launches["preprocess_bwd"] != len(streamed + polish)
-            or launches["loss_fwd"] != len(streamed + polish) or launches["loss_bwd"] != len(streamed + polish)):
+            or launches["loss_fwd"] != len(streamed + polish) or launches["loss_bwd"] != len(streamed + polish)
+            or launches["adam_step"] != len(streamed + polish)):
         failed.append("stream:kitti-launches-disagree-with-the-binning")
     failed += [f"stream:kitti-{k}-not-launched" for k in path_kernels if launches[k] == 0]
     del mapper
@@ -1466,6 +1543,8 @@ def drive_streaming(torch, device, smi):
         f"{launches}")
     if not res["ok"]:
         failed.append("stream:short-stream-card-differs-from-cpu")
+    if launches["adam_step"] != len(got):
+        failed.append(f"stream:short-adam_step-launched-{launches['adam_step']}-for-{len(got)}-steps")
     failed += [f"stream:short-{k}-not-launched" for k in path_kernels if launches[k] == 0]
     log(f"[stream] phase 9 wall time {time.perf_counter() - t_phase:.1f} s")
     return failed
@@ -1483,7 +1562,7 @@ def drive_mono(torch, device, smi):
     t_phase = time.perf_counter()
     failed = []
     path_kernels = ("tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export", "preprocess_fwd",
-                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write")
+                    "preprocess_bwd", "loss_fwd", "loss_bwd", "bin_count", "bin_write", "adam_step")
     settings = mono.mono_settings()
     intr = mono.room_intrinsics(ROOM_W, ROOM_H)
 
@@ -1569,7 +1648,7 @@ def drive_mono(torch, device, smi):
             or not launches["bin_count"] == launches["bin_write"] == launches["tile_ranges_pack"]
             or launches["blend_fwd"] != n_bin["fresh"] + renders or renders == 0
             or launches["preprocess_bwd"] != steps or launches["loss_fwd"] != steps
-            or launches["loss_bwd"] != steps):
+            or launches["loss_bwd"] != steps or launches["adam_step"] != steps):
         failed.append("mono:launches-disagree-with-the-steps-and-renders")
     failed += [f"mono:{k}-not-launched" for k in path_kernels[:3] if launches[k] == 0]
 
@@ -1807,7 +1886,7 @@ def main() -> int:
     if model.count != n0:
         failed.append("main:count-changed")
     for name in ("tile_ranges_pack", "blend_fwd", "blend_bwd", "preprocess_fwd", "preprocess_bwd", "loss_fwd",
-                 "loss_bwd", "bin_count", "bin_write"):
+                 "loss_bwd", "bin_count", "bin_write", "adam_step"):
         if launches[name] < WARMUP + TIMED:
             failed.append(f"main:{name}-launched-{launches[name]}")
     if launches["blend_fwd_export"] != 0:
@@ -1934,6 +2013,8 @@ def main() -> int:
     failed += drive_loss(torch, device, launches, time_entry)
     # ---- 5d. the binning's passes and route at the cells' map sizes
     failed += drive_binning(torch, device, launches, time_entry)
+    # ---- 5e. the Adam kernel at the cells' map sizes and ragged counts
+    failed += drive_adam(torch, device, launches, time_entry)
 
     # ---- 6. probes: each probe kernel against its plain version on the
     # 64x64 scene and the opaque wall at two chunk sizes, and at the headline;

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import OptimizationParams
@@ -116,7 +117,8 @@ def train_step(
 
     Spans of the current tracer (`utils/observability.py`), beside the
     render's: "step.loss", "step.backward" (the autograd backward: K2, the
-    preprocess's backward), "step.stats", "step.adam"."""
+    preprocess's backward), "step.stats", "step.adam" (the learning rates
+    on the host, one launch of the kernel adam_step on the card)."""
     params = model.params()
     # zero screen-space offset whose gradient feeds densification (JAX :180-183)
     m2d0 = torch.zeros((model.count, 2), device=model.xyz.device, requires_grad=True)
@@ -135,8 +137,8 @@ def train_step(
             model.add_densification_stats(grads[-1], out.radii, cfg.width, cfg.height)
 
     with span("step.adam"):
-        lrs = group_lrs(opt, 1.0, iteration, device=model.xyz.device)
-        lrs["xyz"] = lrs["xyz"] * spatial_lr_scale
+        lrs = group_lrs(opt, 1.0, iteration)
+        lrs["xyz"] = lrs["xyz"] * np.float32(spatial_lr_scale)
         adam_step({k: p.data for k, p in params.items()}, g_params, adam, lrs)
     with torch.no_grad():
         metrics = StepMetrics(

@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # binning's two passes binning.cu
 SOURCES = ("binning.cu", "tile_ranges_pack.cu", "blend_fwd.cu", "blend_fwd_export.cu", "blend_bwd.cu", "blend_probe.cu",
            "blend_probe_pair2.cu", "blend_probe_bwd.cu", "expand_gather.cu", "pair_table.cu", "preprocess.cu",
-           "loss.cu")
+           "loss.cu", "adam.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # product and sum as the plain PyTorch versions do (parity first, speed later)
 NVCC_FLAGS = (
@@ -47,6 +47,7 @@ LAUNCHES = {
     "blend_probe_fwd": 0, "blend_probe_fwd_pair2": 0, "blend_probe_bwd": 0, "expand_gather": 0,
     "realign_copy": 0, "window_gather_rows": 0, "window_gather_cols": 0, "xpose_cumsum": 0,
     "preprocess_fwd": 0, "preprocess_bwd": 0, "loss_fwd": 0, "loss_bwd": 0, "bin_count": 0, "bin_write": 0,
+    "adam_step": 0,
 }
 
 _P = ctypes.c_void_p
@@ -113,6 +114,9 @@ _SIGNATURES = {
     # render, gt, mask as above; H, W, taps, dmaps, the upstream gradient
     # (device scalar), (1 - lambda) / N, lambda / N; grad, stream
     "gsdf_loss_bwd": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I, _P, _P, _P, _F, _F, _P, _P),
+    # groups (host array of models/optimizer.py::_Group), n_groups, b1,
+    # 1 - b1, b2, 1 - b2, eps, sqrt(bc2), stream
+    "gsdf_adam_step": (_P, _I, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _lib = None

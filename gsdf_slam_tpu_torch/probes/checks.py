@@ -69,6 +69,13 @@ its own tree), the gradient within BWD_SMALL scaled (the port's gradient
 bar; it is computed in the plain version's op order, so it is expected to
 agree far closer), two runs' losses and gradients bit-equal (no atomics).
 
+The Adam kernel (adam_step) against the plain version run on copies on
+the card, fed the same host scalars: p, m and v bit-equal after each step
+(the same float32 ops in the same order, no contraction); a clone taken
+before the steps unchanged; one launch a step. Its span, "step.adam",
+makes no blocking call: a tracer runs it under
+torch.cuda.set_sync_debug_mode("error").
+
 At the headline a pair within rounding of the T = 1e-4 frontier may apply
 on one side only (the kernels sum log T pair by pair, the plain versions by
 chunks). That moves log T_eff by at least log1p(-1/255) and, for `notrans`,
@@ -79,11 +86,15 @@ differ on 8 of 825,600), and accum is held on the others.
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from .. import kernels
 from ..ops.blend import checkpoint_slots, checkpoints_read, keep_log_exit
 from ..ops.blend_probe import FLOOR_SCALE, pair_n_done
+from ..utils.observability import PhaseTimer, using
 
 FWD_SMALL = 5e-6
 BWD_SMALL = 2e-5
@@ -560,3 +571,149 @@ def binning_check(depths, rect_min, rect_max, tiles_touched, means2d, conics, op
     res["count_err"] = err((counts, counts_p), (totals, totals_p))
     res["write_err"] = err((tiles, tiles_p), (pair_gid, pair_gid_p))
     return res
+
+
+def adam_inputs(shapes: dict[str, tuple], device, seed: int = 0, step: int = 776, misaligned: bool = False):
+    """(params, grads, AdamState) for the Adam kernel: normal parameters,
+    gradients and first moments, second moments |normal| x 1e-6, the step
+    count `step`, each group of `shapes`. With `misaligned`, every tensor
+    a view one float into its buffer, so not 16-byte aligned."""
+    from ..models.optimizer import AdamState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale=1.0, positive=False):
+        n = int(np.prod(shape))
+        buf = torch.randn(n + int(misaligned), generator=gen, device=device)
+        t = buf[int(misaligned):].view(shape)
+        return (t.abs() if positive else t).mul_(scale)
+
+    params = {k: draw(s) for k, s in shapes.items()}
+    grads = {k: draw(s, 1e-2) for k, s in shapes.items()}
+    state = AdamState(m={k: draw(s, 1e-2) for k, s in shapes.items()},
+                      v={k: draw(s, 1e-6, positive=True) for k, s in shapes.items()}, step=step)
+    return params, grads, state
+
+
+def adam_check(params, grads, state, lrs, steps: int = 2) -> dict:
+    """`optimizer.adam_step` (the kernel, on CUDA tensors) for `steps`
+    steps with the same gradients against `adam_step_plain` on copies on
+    the card, fed the same host scalars: p, m and v bit-equal after every
+    step; a clone taken before the steps unchanged; one launch a step; the
+    gradients' layouts. Updates `params` and `state`. Returns the
+    comparisons and "ok"."""
+    from ..models import optimizer
+
+    before = {k: (params[k].clone(), state.m[k].clone(), state.v[k].clone()) for k in params}
+    before_cpu = {k: tuple(t.cpu() for t in ts) for k, ts in before.items()}
+    want_p = {k: p.clone() for k, p in params.items()}
+    want_m = {k: t.clone() for k, t in state.m.items()}
+    want_v = {k: t.clone() for k, t in state.v.items()}
+    n0 = kernels.LAUNCHES["adam_step"]
+    not_equal = []
+    for i in range(steps):
+        optimizer.adam_step(params, grads, state, lrs)
+        bc1, _, sqrt_bc2 = optimizer.bias_corrections(state.step)
+        for k in want_p:
+            want_m[k], want_v[k] = optimizer.adam_step_plain(
+                want_p[k], grads[k], want_m[k], want_v[k], float(np.float32(lrs[k]) / bc1), float(sqrt_bc2))
+        torch.cuda.synchronize()
+        for k in params:
+            for what, got, want in (("p", params[k], want_p[k]), ("m", state.m[k], want_m[k]),
+                                    ("v", state.v[k], want_v[k])):
+                if not bit_equal(got, want):
+                    not_equal.append(f"step {i + 1}: {what}.{k}")
+    kept = all(bit_equal(a.cpu(), b) for k in before for a, b in zip(before[k], before_cpu[k]))
+    moved = all(not bit_equal(params[k], before[k][0]) for k in params if params[k].numel())
+    res = {
+        "n": {k: int(p.shape[0]) if p.dim() else 1 for k, p in params.items()},
+        "elements": sum(p.numel() for p in params.values()), "steps": steps, "t": state.step,
+        "launches": kernels.LAUNCHES["adam_step"] - n0, "not_equal": not_equal, "snapshot_unchanged": kept,
+        "moved": moved,
+        "grad_layouts": {k: [list(g.shape), list(g.stride()), g.is_contiguous(), g.data_ptr() % 16]
+                         for k, g in grads.items()},
+    }
+    res["ok"] = not not_equal and kept and moved and res["launches"] == steps
+    return res
+
+
+class _SyncErrorSpans(PhaseTimer):
+    """A tracer that runs each span named in `names` under
+    torch.cuda.set_sync_debug_mode("error"), so a blocking call inside it
+    raises; counts the spans it guarded."""
+
+    def __init__(self, names):
+        super().__init__()
+        self.names = set(names)
+        self.guarded = 0
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        with super().phase(name):
+            if name not in self.names:
+                yield
+                return
+            self.guarded += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+
+def adam_span_check(model, adam, cam, gt, bg, cfg, opt, n_steps: int = 6) -> dict:
+    """`n_steps` train_steps of `model`, in turns fresh, export and cached
+    (through a cache exported first), with the span "step.adam" guarded
+    against blocking calls: the error a blocking call there raised (None),
+    the spans guarded and the adam_step launches, one a step. Returns them
+    and "ok"."""
+    from ..engine.train import train_step
+
+    _, cache = train_step(model, adam, cam, gt, None, bg, 0, 1.0, cfg, opt, export_binning_cache=True)
+    kinds = ({}, {"export_binning_cache": True}, {"binning_cache": cache})
+    tracer = _SyncErrorSpans(("step.adam",))
+    n0 = kernels.LAUNCHES["adam_step"]
+    error = None
+    with using(tracer):
+        try:
+            for i in range(n_steps):
+                train_step(model, adam, cam, gt, None, bg, 1 + i, 1.0, cfg, opt, **kinds[i % 3])
+        except RuntimeError as e:
+            error = str(e)
+    torch.cuda.synchronize()
+    res = {"steps": n_steps, "guarded": tracer.guarded, "launches": kernels.LAUNCHES["adam_step"] - n0,
+           "error": error}
+    res["ok"] = error is None and tracer.guarded == n_steps == res["launches"]
+    return res
+
+
+def adam_street_inputs(device, size: str, seed: int = 0, step: int = 776):
+    """(params, grads, AdamState) as a cell's step hands them to Adam: the
+    street scene of `size` (scene.STREET_SIZES: "polish" 0.63M, "drive"
+    2.0M Gaussians) as a model, its gradients from one render at KITTI's
+    1226x370 against a uniform random image through the step's own loss
+    and autograd backward (the layouts autograd returns), and moments
+    drawn as `adam_inputs` does."""
+    from ..engine.train import render_state
+    from ..models import GaussianModel
+    from ..models.optimizer import PARAM_GROUPS
+    from ..ops import RasterizeConfig
+    from ..ops.losses import mapper_loss
+    from ..ops.transforms import inverse_sigmoid
+    from .scene import KITTI_HEIGHT, KITTI_WIDTH, STREET_SIZES, kitti_camera, street_scene
+
+    n, _, scale_mult = STREET_SIZES[size]
+    means, scales, quats, opac, dc, rest = street_scene(device, n, scale_mult, seed=seed)
+    model = GaussianModel({"xyz": means, "f_dc": dc, "f_rest": rest, "opacity": inverse_sigmoid(opac)[:, None],
+                           "scaling": torch.log(scales), "rotation": quats})
+    del means, scales, quats, opac, dc, rest
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gt = torch.rand((KITTI_HEIGHT, KITTI_WIDTH, 3), generator=gen, device=device)
+    m2d0 = torch.zeros((n, 2), device=device, requires_grad=True)
+    out = render_state(model, kitti_camera(device), torch.zeros(3, device=device),
+                       RasterizeConfig(height=KITTI_HEIGHT, width=KITTI_WIDTH), means2d_offset=m2d0)
+    params = model.params()
+    grads = torch.autograd.grad(mapper_loss(out.image, gt, None, 0.2), [params[k] for k in PARAM_GROUPS] + [m2d0])
+    del out
+    _, _, state = adam_inputs({k: tuple(params[k].shape) for k in PARAM_GROUPS}, device, seed=seed + 1, step=step)
+    return {k: params[k].data for k in PARAM_GROUPS}, dict(zip(PARAM_GROUPS, grads[:-1])), state

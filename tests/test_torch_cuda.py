@@ -20,6 +20,7 @@ from gsdf_slam_tpu_torch.config import OptimizationParams
 from gsdf_slam_tpu_torch.convert import copy_state
 from gsdf_slam_tpu_torch.engine import render_depth_state, train_step
 from gsdf_slam_tpu_torch.models import gaussian_model as surgery
+from gsdf_slam_tpu_torch.models import AdamState, GaussianModel, group_lrs
 from gsdf_slam_tpu_torch.ops import (
     CameraMatrices, RasterizeConfig, binning, blend, blend_probe, losses, pair_table, preprocess, projection, render,
     tile_blend,
@@ -622,6 +623,55 @@ def test_mapper_loss_on_the_card_against_the_cpu(dev, mask_kind):
     assert float((g_c - g_g).abs().max()) / float(g_c.abs().max()) <= checks.BWD_SMALL
 
 
+# ---- Adam: the kernel against the plain version on the card, fed the same
+# host scalars (probes/checks.py::adam_check)
+
+ADAM_SHAPES = {"xyz": (3,), "f_dc": (1, 3), "f_rest": (15, 3), "opacity": (1,), "scaling": (3,), "rotation": (4,)}
+
+
+@pytest.mark.parametrize("scene", ["polish", "drive"])
+def test_adam_kernel_bit_equal_at_the_cells_sizes(dev, scene):
+    """The street scenes of the cells' map sizes (0.63M and 2.0M
+    Gaussians), with the gradients one step's render, loss and autograd
+    backward return: contiguous, p, m and v bit-equal over two steps, one
+    launch a step, a clone taken before unchanged."""
+    params, grads, state = checks.adam_street_inputs(dev, scene)
+    res = checks.adam_check(params, grads, state, group_lrs(OptimizationParams(), 1.0, state.step))
+    assert res["ok"], res
+    assert all(layout[2] for layout in res["grad_layouts"].values()), res["grad_layouts"]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 1_000_003])
+def test_adam_kernel_bit_equal_on_ragged_counts(dev, n, misaligned):
+    """Counts whose groups end off a multiple of 4 elements, and tensors
+    not 16-byte aligned (the kernel's element-wise path), from the first
+    step with zero moments and from step 777."""
+    shapes = {k: (n, *s) for k, s in ADAM_SHAPES.items()}
+    lrs = group_lrs(OptimizationParams(), 2.5, 5)
+    for step in (0, 776):
+        params, grads, state = checks.adam_inputs(shapes, dev, seed=n, step=step, misaligned=misaligned)
+        if step == 0:
+            state.m, state.v = ({k: torch.zeros_like(p) for k, p in params.items()} for _ in range(2))
+        res = checks.adam_check(params, grads, state, lrs)
+        assert res["ok"], res
+
+
+def test_adam_span_makes_no_blocking_call(dev):
+    """Fresh, export and cached steps on the 64x64 scene with the span
+    "step.adam" under set_sync_debug_mode("error"): no blocking call, one
+    adam_step launch a step."""
+    s = scene_arrays(seed=5, opacity_max=0.99, spread=1.0)
+    means, scales, quats, opac, dc, rest = (a.to(dev) for a in torch_args(s))
+    model = GaussianModel({"xyz": means, "f_dc": dc, "f_rest": rest,
+                           "opacity": torch.logit(opac)[:, None], "scaling": torch.log(scales),
+                           "rotation": quats})
+    gt = torch.rand((64, 64, 3), device=dev)
+    res = checks.adam_span_check(model, AdamState.init(model.params()), _camera(dev), gt, torch.zeros(3, device=dev),
+                                 RasterizeConfig(height=64, width=64), OptimizationParams())
+    assert res["ok"], res
+
+
 # ---- model surgery on the card against the CPU, the depth render through
 # K1, and a training step after each surgery (probes/checks.py's bars)
 
@@ -746,7 +796,7 @@ def test_short_stream_on_the_card_matches_the_cpu(dev):
     assert kernels.LAUNCHES["tile_ranges_pack"] == n["export"] + n.get("fresh", 0)
     assert kernels.LAUNCHES["bin_count"] == kernels.LAUNCHES["bin_write"] == kernels.LAUNCHES["tile_ranges_pack"]
     assert kernels.LAUNCHES["blend_fwd"] == n["cached"] + n.get("fresh", 0)
-    assert kernels.LAUNCHES["blend_bwd"] == len(got)
+    assert kernels.LAUNCHES["blend_bwd"] == kernels.LAUNCHES["adam_step"] == len(got)
 
 
 def test_short_mono_stream_on_the_card_matches_the_cpu(dev):

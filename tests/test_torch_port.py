@@ -13,12 +13,11 @@ import torch
 from torch_port_helpers import claims_cuda
 
 from gsdf_slam_tpu_torch import convert, kernels
-from gsdf_slam_tpu_torch.config import OptimizationParams
 from gsdf_slam_tpu_torch.data import DataLoader
 from gsdf_slam_tpu_torch.engine import Camera, GaussianMapper, Keyframe
 from gsdf_slam_tpu_torch.io import ply_dict_to_gaussians
 from gsdf_slam_tpu_torch.models import GaussianModel
-from gsdf_slam_tpu_torch.models.optimizer import expon_lr, group_lrs
+from gsdf_slam_tpu_torch.models import optimizer
 from gsdf_slam_tpu_torch.ops import CameraMatrices, binning, blend_probe, pair_table, projection, tile_blend
 from gsdf_slam_tpu_torch.ops.colorize import colorize_pointcloud
 
@@ -92,7 +91,7 @@ def no_kernel_library(monkeypatch, tmp_path):
     "tile_ranges_pack", "blend_fwd", "blend_bwd", "blend_fwd_export",
     "blend_probe_fwd", "blend_probe_fwd_pair2", "blend_probe_bwd", "expand_gather",
     "realign_copy", "window_gather_rows", "window_gather_cols", "xpose_cumsum", "preprocess_fwd", "preprocess_bwd",
-    "bin_count", "bin_write",
+    "bin_count", "bin_write", "adam_step",
 ])
 def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrapper):
     def plain_called(*a, **k):
@@ -109,6 +108,7 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
                  "xpose_cumsum_plain"):
         monkeypatch.setattr(pair_table, name, plain_called)
     monkeypatch.setattr(projection, "preprocess_plain", plain_called)
+    monkeypatch.setattr(optimizer, "adam_step_plain", plain_called)
     z = lambda *s, dt=torch.float32: claims_cuda(torch.zeros(s, dtype=dt))
     cam = CameraMatrices(z(4, 4), z(4, 4), z(3), z(), z())
     st = projection.PreprocessSettings(64, 64, 3, 1.0, None)
@@ -144,6 +144,10 @@ def test_cuda_tensor_raises_without_library(no_kernel_library, monkeypatch, wrap
         "preprocess_bwd": lambda: projection.preprocess_bwd(
             z(5, 3), z(5, 3), z(5, 4), z(5, 1, 3), z(5, 15, 3), cam, st, z(5, 9)[:, 0:2], None, z(5, 9)[:, 2:5],
             z(5, 9)[:, 6:9]),
+        "adam_step": lambda: optimizer.adam_step(
+            {k: z(5, 3) for k in ("xyz", "scaling")}, {k: z(5, 3) for k in ("xyz", "scaling")},
+            optimizer.AdamState({k: z(5, 3) for k in ("xyz", "scaling")}, {k: z(5, 3) for k in ("xyz", "scaling")}),
+            {"xyz": 1e-3, "scaling": 5e-3}),
     }
     with pytest.raises(RuntimeError, match="nvcc not found"):
         calls[wrapper]()
@@ -193,8 +197,6 @@ _DEFAULT_DEVICE_CALLS = {
                                                         ("opacity", (1,)), ("scaling", (3,)), ("rotation", (4,)))},
         2).xyz,
     "from_jax_pairs": lambda: convert.from_jax_pairs(np.zeros((2, 1), np.int32), np.zeros((16, 128), np.float32))[1],
-    "expon_lr": lambda: expon_lr(10, 1e-3, 1e-5),
-    "group_lrs": lambda: group_lrs(OptimizationParams(), 1.0, 10)["f_dc"],
     "camera_matrices": lambda: _KEYFRAME.camera_matrices().view,
     "ply_dict_to_gaussians": lambda: ply_dict_to_gaussians(_PLY).xyz,
     "GaussianMapper": lambda: GaussianMapper()._bg[False],
